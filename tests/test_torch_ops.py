@@ -1,0 +1,153 @@
+"""Port ops vs the JAX package's ops, on the CPU, from the same numpy inputs.
+
+Tolerances: the median is exact (it selects an input element); the float32
+filters are held at rtol 1e-5 with an atol of 1e-5 of the output's scale
+(sums taken in another order); quantiles select and interpolate the same
+order statistics and are held at 1e-6.
+"""
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+j_dct = importlib.import_module("ssar_tpu.ops.dct")
+j_gauss = importlib.import_module("ssar_tpu.ops.gaussian")
+j_iir = importlib.import_module("ssar_tpu.ops.iir")
+j_q = importlib.import_module("ssar_tpu.ops.quantile")
+j_rs = importlib.import_module("ssar_tpu.ops.resample")
+j_up = importlib.import_module("ssar_tpu.ops.upfirdn")
+from ssar_tpu.ops.median import median_filter as j_median
+from ssar_tpu.ops.median_pallas import sliding_median_lastaxis
+from ssar_tpu_torch.audio.spectral import reflect_pad
+from ssar_tpu_torch.ops import dct as t_dct
+from ssar_tpu_torch.ops import gaussian as t_gauss
+from ssar_tpu_torch.ops import iir as t_iir
+from ssar_tpu_torch.ops import quantile as t_q
+from ssar_tpu_torch.ops import resample as t_rs
+from ssar_tpu_torch.ops import upfirdn as t_up
+from ssar_tpu_torch.ops.median import median_filter, median_filter_plain
+
+
+def _close(got, want, rtol=1e-5):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=rtol, atol=rtol * (np.abs(want).max() + 1e-30))
+
+
+# ------------------------------------------------------------------ median --
+@pytest.mark.parametrize("shape,k,axis", [((16, 48), 7, -1), ((16, 48), 7, 0), ((16, 48), 31, -1),
+                                          ((40, 48), 31, 0), ((3, 16, 48), 7, -1), ((3, 40, 20), 31, 1),
+                                          ((6, 16, 48), 9, 0)])
+def test_median_plain_matches_jax(rng, shape, k, axis):
+    x = rng.rand(*shape).astype(np.float32)
+    got = median_filter(torch.as_tensor(x), k, axis)
+    assert torch.equal(got, median_filter_plain(torch.as_tensor(x), k, axis))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_median(jnp.asarray(x), k, axis)))
+
+
+@pytest.mark.parametrize("k", [7, 31])
+def test_median_matches_pallas_kernel_interpret(rng, k):
+    x = rng.rand(2, 16, 48).astype(np.float32)
+    got = median_filter(torch.as_tensor(x), k, -1).numpy()
+    for b in range(2):  # the Pallas kernel is 2-D: one call per batch row
+        np.testing.assert_array_equal(got[b], np.asarray(sliding_median_lastaxis(jnp.asarray(x[b]), k)))
+        np.testing.assert_array_equal(
+            median_filter(torch.as_tensor(x[b]), k, 0).numpy()[:, :16],
+            np.asarray(sliding_median_lastaxis(jnp.asarray(x[b].T), k)).T[:, :16])
+
+
+def test_median_rejects_other_modes():
+    with pytest.raises(ValueError):
+        median_filter(torch.zeros(4, 9), 3, mode="constant")
+    with pytest.raises(ValueError):
+        median_filter(torch.zeros(4, 9), 4)
+
+
+# ----------------------------------------------------------------- filters --
+@pytest.mark.parametrize("shape,sigma,mode", [((50,), 2.0, "circular"), ((50, 3), 10.0, "circular"),
+                                              ((12, 2, 4, 4), 5.0, "circular"), ((30, 4), 3.0, "reflect")])
+def test_gaussian_filter(rng, shape, sigma, mode):
+    x = rng.randn(*shape).astype(np.float32)
+    got = t_gauss.gaussian_filter(torch.as_tensor(x), sigma, mode)
+    want = j_gauss.gaussian_filter(jnp.asarray(x), sigma, mode)
+    assert tuple(got.shape) == want.shape
+    _close(got, want)
+
+
+@pytest.mark.parametrize("kind,cutoff", [("lowpass", 200.0), ("highpass", 4000.0)])
+def test_biquad(rng, kind, cutoff):
+    sr = 24576
+    x = rng.randn(2, 3000).astype(np.float32)  # > one block level of the recurrence
+    b, a = t_iir.biquad_coeffs(kind, sr, cutoff)
+    got = t_iir.biquad_apply(torch.as_tensor(x), b, a)
+    want = j_iir.biquad_apply(jnp.asarray(x), tuple(b), tuple(a))
+    _close(got, want)
+
+
+def test_mid_pass(rng):
+    x = rng.randn(70000).astype(np.float32)  # three levels of blocks
+    _close(t_iir.mid_pass(torch.as_tensor(x), 24576), j_iir.mid_pass(jnp.asarray(x), 24576))
+
+
+@pytest.mark.parametrize("orig,new,width", [(44100, 24576, 6), (2, 1, 6), (16000, 24576, 16)])
+def test_resample(rng, orig, new, width):
+    x = rng.randn(4000).astype(np.float32)
+    got = t_rs.resample(torch.as_tensor(x), orig, new, lowpass_filter_width=width)
+    want = j_rs.resample(jnp.asarray(x), orig, new, lowpass_filter_width=width)
+    assert tuple(got.shape) == want.shape
+    _close(got, want)
+
+
+@pytest.mark.parametrize("norm", [None, "ortho"])
+def test_dct(rng, norm):
+    x = rng.randn(5, 128).astype(np.float32)
+    _close(t_dct.dct(torch.as_tensor(x), norm=norm), j_dct.dct(jnp.asarray(x), norm=norm))
+
+
+@pytest.mark.parametrize("L,left,right", [(10, 3, 3), (5, 12, 7), (2, 3, 1)])
+def test_reflect_pad_matches_numpy(L, left, right):
+    x = np.arange(L, dtype=np.float32)
+    np.testing.assert_array_equal(reflect_pad(torch.as_tensor(x), left, right).numpy(),
+                                  np.pad(x, (left, right), mode="reflect"))
+
+
+# --------------------------------------------------------------- quantiles --
+def test_quantiles(rng):
+    x = rng.randn(200, 5).astype(np.float32)
+    for q in (0.1, 0.5, 0.975):
+        _close(t_q.quantile(torch.as_tensor(x), q, dim=0), jnp.quantile(jnp.asarray(x), q, axis=0), 1e-6)
+        _close(t_q.quantile(torch.as_tensor(x), q), jnp.quantile(jnp.asarray(x), q), 1e-6)
+    mask = rng.rand(200, 5) > 0.6
+    _close(t_q.masked_quantile(torch.as_tensor(x), torch.as_tensor(mask), 0.5),
+           j_q.masked_quantile(jnp.asarray(x), jnp.asarray(mask), 0.5), 1e-6)
+    assert torch.isinf(t_q.masked_quantile(torch.as_tensor(x), torch.zeros(200, 5, dtype=torch.bool), 0.5))
+
+
+def test_percentile_clamps(rng):
+    x = rng.randn(120, 6).astype(np.float32)
+    _close(t_q.clamp_peaks_percentile(torch.as_tensor(x), 97.5),
+           j_q.clamp_peaks_percentile(jnp.asarray(x), 97.5), 1e-6)
+    _close(t_q.clamp_peaks_percentile(torch.as_tensor(x[:, 0]), 90.0),
+           j_q.clamp_peaks_percentile(jnp.asarray(x[:, 0]), 90.0), 1e-6)
+    _close(t_q.clamp_lower_percentile(torch.as_tensor(x), 10.0),
+           j_q.clamp_lower_percentile(jnp.asarray(x), 10.0), 1e-6)
+
+
+# ----------------------------------------------------------------- upfirdn --
+@pytest.mark.parametrize("up,down,pad", [(1, 1, (1, 1)), (2, 1, (2, 1)), (1, 2, (1, 1))])
+def test_upfirdn2d(rng, up, down, pad):
+    x = rng.randn(2, 9, 9, 3).astype(np.float32)  # NHWC for JAX
+    k = j_up.make_blur_kernel() * 4.0
+    want = j_up.upfirdn2d(jnp.asarray(x), jnp.asarray(k), up=up, down=down, pad=pad)
+    got = t_up.upfirdn2d(torch.as_tensor(x).permute(0, 3, 1, 2), torch.as_tensor(k), up=up, down=down, pad=pad)
+    _close(got.permute(0, 2, 3, 1), want)
+
+
+def test_fused_leaky_relu_and_upsample(rng):
+    x = rng.randn(2, 8, 8, 4).astype(np.float32)
+    b = rng.randn(4).astype(np.float32)
+    xt = torch.as_tensor(x).permute(0, 3, 1, 2)
+    _close(t_up.fused_leaky_relu(xt, torch.as_tensor(b)).permute(0, 2, 3, 1),
+           j_up.fused_leaky_relu(jnp.asarray(x), jnp.asarray(b)))
+    _close(t_up.upsample2x(xt).permute(0, 2, 3, 1), j_up.upsample2x(jnp.asarray(x)))
