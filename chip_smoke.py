@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serve path once on one CUDA card and check it.
+"""Drive the PyTorch port's serve and train paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -8,32 +8,60 @@ Phases (any failure exits non-zero and prints no result line):
   3. kernel check: the sliding-median kernel against its plain PyTorch
      version (torch.equal) at the serve path's and a 3-minute track's shapes,
      batched and awkward shapes, and its time beside the plain version's;
-  4. main path: a synthetic 8 s track at 44.1 kHz -> audio2features (192, 59)
+  3b. kernel check: absdiff (B2) and the S4D Vandermonde forward and backward
+     (B3) against their plain versions at the train path's shapes, a 3-minute
+     track's and ragged ones, with their times, plain times and bounds;
+  4. serve path: a synthetic 8 s track at 44.1 kHz -> audio2features (192, 59)
      -> GRU LatentNoiseReactor (hidden 32, 4 layers, random (96, 18, 512)
      palette) -> 1024 px StyleGAN2 (random weights from the seed, bf16) ->
-     192 I420 frames into an in-memory sink; kernel launch counts are read
-     around this run only;
+     192 I420 frames into an in-memory sink; the sliding-median launch count
+     is read around this run only;
   5. reference checks: the card's features and synthesis against the same
-     code on the CPU (plain median) at a small size.
+     code on the CPU (plain median) at a small size;
+  6. train path: ``ssar_tpu_torch.train.train.main`` at the grid of record's
+     width (sashimi backbone, fixed decoder, ssabsdiff loss, hidden 32, 4
+     layers, batch 32, 8 s windows at 24 fps) on 64 synthetic windows, 40
+     steps with evals, checkpoints and 256 px renders under build/; the
+     absdiff and Vandermonde launch counts are read around this run only.
+     Then 10 steps each of the other loss modes and of the learned decoder,
+     a warm timed loop of ``train_step_gather`` per mode, and the trained
+     sashimi reactor on phase 4's features;
+  7. reference check: one ssabsdiff train step at a small width on the card
+     and on the CPU, with the same weights, batch and base noise.
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import copy
 import json
+import math
 import subprocess
 import sys
 import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
 
 SEED = 0
 FPS = 24
-FP32_PEAK_OPS = 67e12   # H100 SXM fp32 outside the tensor cores (data sheet)
+ROOT = Path(__file__).resolve().parent
+# H100 SXM published peaks (data sheet; boost clock 1.98 GHz, 132 SMs)
+FP32_PEAK_OPS = 67e12   # fp32 FLOP/s outside the tensor cores (an FMA counts 2)
 HBM_BYTES_PER_S = 3.35e12
+SM_CLOCK_HZ, N_SMS = 1.98e9, 132
+SFU_OPS_PER_S = 16 * N_SMS * SM_CLOCK_HZ    # transcendentals: 16 per clock per SM on sm_90
+FP32_INSTR_PER_S = 128 * N_SMS * SM_CLOCK_HZ  # fp32 FMA-class instructions: 128 per clock per SM
+
+# the train path's cell: the reference's grid of record (experiments.py "paper")
+TRAIN_FLAGS = ["--backbone", "sashimi", "--decoder", "fixed", "--loss", "ssabsdiff", "--hidden_size", "32",
+               "--num_layers", "4", "--n_latent_split", "3", "--batch_size", "32", "--lr", "1e-4",
+               "--duration", "8", "--fps", "24"]
+TRAIN_STEPS = 40
 
 
 def log(*a):
@@ -60,6 +88,28 @@ def cuda_ms(fn, runs: int = 25) -> float:
     return float(np.median(times))
 
 
+def device_ms(prof) -> float:
+    """Summed device time of a profile's kernels and copies (device-side
+    events only)."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation) / 1e3
+
+
+def device_ms_per_call(fn, calls: int = 20) -> float:
+    """Device time of one call, from torch.profiler over `calls` calls: the
+    kernels' own time, without the host's launch and wrapper overhead that
+    ``cuda_ms`` also sees at small shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return device_ms(prof) / calls
+
+
 def median_bound_ms(numel: int, k: int) -> tuple[float, str]:
     """Least time for one sliding median: each input read and output written
     once (fp32), and the odd-even network's k(k-1)/2 compare-exchanges of two
@@ -67,6 +117,35 @@ def median_bound_ms(numel: int, k: int) -> tuple[float, str]:
     t_bytes = 2 * 4 * numel / HBM_BYTES_PER_S * 1e3
     t_ops = numel * k * (k - 1) / FP32_PEAK_OPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def absdiff_bound_ms(B: int, T: int, E: int) -> tuple[float, str]:
+    """Least time for one batched absdiff: x (B, T, E) fp32 read once and
+    y (B, T) written once at 3.35 TB/s, against a subtract, an absolute value
+    and an add (3 fp32 operations) per element at 67 TFLOP/s."""
+    t_bytes = 4 * B * T * (E + 1) / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * B * (T - 1) * E / FP32_PEAK_OPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def vandermonde_bound_ms(H: int, N: int, L: int, backward: bool) -> tuple[float, str]:
+    """Least time for the S4D Vandermonde at (H, N, L).  Operations: each of
+    the H*N*L terms takes 3 transcendentals (exp, sin, cos) at the SFU rate
+    (16 per clock per SM) and ~8 fp32 FMA-class instructions forward (~12
+    backward) at 128 per clock per SM; the two units run side by side, so the
+    slower one bounds.  Bytes: four (H, N) inputs read and K (H, L) written
+    once forward; the four inputs and g (H, L) read and four (H, N)
+    gradients written once backward."""
+    terms = H * N * L
+    t_ops = max(3 * terms / SFU_OPS_PER_S, (12 if backward else 8) * terms / FP32_INSTR_PER_S) * 1e3
+    t_bytes = 4 * ((8 if backward else 4) * H * N + H * L) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> tuple[bool, float]:
+    """(|got - want| <= atol + rtol |want| everywhere, max |got - want|)."""
+    err = (got - want).abs()
+    return bool((err <= atol + rtol * want.abs()).all()), float(err.max())
 
 
 def synthetic_track(sr: int, seconds: float) -> np.ndarray:
@@ -153,12 +232,17 @@ def main():
             if k == 31 and shape in ((1025, 193), (1025, 192), (1025, 4320), (4, 1025, 4320)):
                 ms = cuda_ms(lambda: median_filter(x, k, axis))
                 plain = cuda_ms(lambda: median_filter_plain(x, k, axis), runs=20)
+                dev_ms = device_ms_per_call(lambda: median_filter(x, k, axis))
                 bound, by = median_bound_ms(x.numel(), k)
                 rows.append({"shape": list(shape), "axis": axis, "ms": ms, "plain_ms": plain,
                              "bound_ms": bound, "bound_by": by})
-                log(f"[kernel] sliding_median {shape} k={k} axis={axis}: {ms:.4f} ms "
+                log(f"[kernel] sliding_median {shape} k={k} axis={axis}: {ms:.4f} ms, device {dev_ms:.4f} ms "
                     f"(plain {plain:.3f} ms, bound {bound:.4f} ms by {by})")
     log(f"[kernel] sliding_median bit-exact on {len(checks)} shapes x both axes")
+
+    # --------------------------------------------------------------- 3b --
+    absdiff_rows, absdiff_err = check_absdiff(dev)
+    vdm_rows, vdm_err, vdm_bwd_err = check_vandermonde(dev)
 
     # ---------------------------------------------------------------- 4 --
     sr_in = 44100
@@ -250,19 +334,370 @@ def main():
         fail(f"rgb_to_i420 card vs CPU differs by {yuv_err} levels")
     log(f"[reference] synthesis card vs CPU fp32 max {err:.3g}; I420 card vs CPU max {yuv_err} level(s)")
 
+    # ---------------------------------------------------------------- 6 --
+    train_counts = train_path(dev, feats)
+
+    # ---------------------------------------------------------------- 7 --
+    reference_step(dev)
+
     main_row = [r for r in rows if r["shape"] == [1025, 193]]
+    # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
+    ad_path = [r for r in absdiff_rows if r["path"]]
+    # Vandermonde: one launch at the train path's shape, (104, 32, 192) (hidden 32, fixed decoder)
+    vdm_path = next(r for r in vdm_rows if r["shape"] == [104, 32, 192])
+
+    def sums(rows_, prefix=""):
+        return {"ms": sum(r[prefix + "ms"] for r in rows_), "plain_ms": sum(r[prefix + "plain_ms"] for r in rows_),
+                "bound_ms": sum(r[prefix + "bound_ms"] for r in rows_), "bound_by": rows_[0][prefix + "bound_by"]}
+
     kernels = [{
         "name": "sliding_median", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": launches, "max_abs_err": max_err,
         # one HPSS at the main path's shape: the time-axis and the frequency-axis filter of (1025, 193)
-        "ms": sum(r["ms"] for r in main_row), "plain_ms": sum(r["plain_ms"] for r in main_row),
-        "bound_ms": sum(r["bound_ms"] for r in main_row), "bound_by": main_row[0]["bound_by"],
-        "library_ms": None,
+        **sums(main_row), "library_ms": None,
+    }, {
+        "name": "absdiff", "route": "cuda", "source": "ssar_tpu_torch/csrc/absdiff.cu",
+        "replaces": "ssar_tpu/ops/absdiff.py:38", "launches": train_counts["absdiff"],
+        "max_abs_err": absdiff_err, **sums(ad_path), "library_ms": None,
+    }, {
+        "name": "s4d_vandermonde", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
+        "replaces": "ssar_tpu/ops/vandermonde.py:32", "launches": train_counts["s4d_vandermonde"],
+        "max_abs_err": vdm_err, **sums([vdm_path]), "library_ms": None,
+    }, {
+        "name": "s4d_vandermonde_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
+        "replaces": "ssar_tpu/ops/vandermonde.py:92", "launches": train_counts["s4d_vandermonde_bwd"],
+        "max_abs_err": vdm_bwd_err, **sums([vdm_path], "bwd_"), "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def check_absdiff(dev):
+    """B2 against its plain version at the ssabsdiff loss's shapes (batch 32,
+    8 s windows: latents 18 x 512 and the 4..32 px noise maps), ragged and
+    T = 2 shapes; rtol 1e-5 (float32 sums of positive terms in another
+    order), and two launches equal bit for bit."""
+    from ssar_tpu_torch.ops.absdiff import batch_absdiff, batch_absdiff_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    path = [(32, 192, 18 * 512), (32, 192, 1024), (32, 192, 256), (32, 192, 64), (32, 192, 16)]
+    rows, max_err = [], 0.0
+    for shape in path + [(3, 33, 7), (4, 2, 100), (1, 2, 1)]:
+        x = torch.randn(shape, generator=g, device=dev)
+        got, again = batch_absdiff(x), batch_absdiff(x)
+        want = batch_absdiff_plain(x)
+        torch.cuda.synchronize()
+        ok, err = within(got, want, 1e-5, 0.0)
+        if not ok:
+            fail(f"absdiff differs from the plain version at {shape}: max abs error {err:.3g}")
+        if not torch.equal(got, again):
+            fail(f"absdiff: two launches differ at {shape}")
+        max_err = max(max_err, err)
+        row = {"shape": list(shape), "path": shape in path, "ms": cuda_ms(lambda: batch_absdiff(x)),
+               "plain_ms": cuda_ms(lambda: batch_absdiff_plain(x)),
+               "dev_ms": device_ms_per_call(lambda: batch_absdiff(x)),
+               "plain_dev_ms": device_ms_per_call(lambda: batch_absdiff_plain(x))}
+        row["bound_ms"], row["bound_by"] = absdiff_bound_ms(*shape)
+        rows.append(row)
+        log(f"[kernel] absdiff {shape}: {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+            f"device {row['plain_dev_ms']:.4f}; bound {row['bound_ms']:.5f} ms by {row['bound_by']}); "
+            f"max abs error {err:.3g}")
+    return rows, max_err
+
+
+def check_vandermonde(dev):
+    """B3 forward and backward against the plain version and its autograd,
+    on the inputs of freshly initialised S4D layers (N = 32 is state_dim 64):
+    (104, 32, 192) the train path (hidden 32, fixed decoder), (56, 32, 192)
+    and (32, 32, 192) hidden 16 and 8, (104, 32, 4320) a 3-minute track,
+    (13, 7, 1000) ragged.  rtol 1e-4 with an atol of 1e-5 of the largest
+    magnitude (exp / sin / cos of the same fp32 products, summed in another
+    order)."""
+    from ssar_tpu_torch.models.s4 import S4DLayer
+    from ssar_tpu_torch.ops import vandermonde_cuda
+    from ssar_tpu_torch.ops.vandermonde import s4d_vandermonde, s4d_vandermonde_plain, zoh_factors
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows, fwd_err, bwd_err = [], 0.0, 0.0
+    for H, N, L in ((104, 32, 192), (56, 32, 192), (32, 32, 192), (104, 32, 4320), (13, 7, 1000)):
+        torch.manual_seed(SEED + H + N)
+        layer = S4DLayer(H, 2 * N).to(dev)
+        with torch.no_grad():
+            args = [t.contiguous() for t in zoh_factors(layer.log_dt, layer._A_re(), layer.A_im, layer.C_re,
+                                                        layer.C_im)]
+        g = torch.randn(H, L, generator=gen, device=dev)
+        leaves = [a.clone().requires_grad_() for a in args]
+        K = s4d_vandermonde(*leaves, L)
+        grads = torch.autograd.grad(K, leaves, g)
+        K_plain = s4d_vandermonde_plain(*leaves, L)
+        grads_plain = torch.autograd.grad(K_plain, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+        K, K_ref = K.detach(), K_plain.detach()
+        ok, err = within(K, K_ref, 1e-4, 1e-5 * float(K_ref.abs().max()))
+        if not ok:
+            fail(f"s4d_vandermonde differs from the plain version at {(H, N, L)}: max abs error {err:.3g}")
+        fwd_err = max(fwd_err, err)
+        for name, a, b in zip(("a", "b", "cre", "cim"), grads, grads_plain):
+            ok, err = within(a, b, 1e-4, 1e-5 * float(b.abs().max()))
+            if not ok:
+                fail(f"s4d_vandermonde_bwd d{name} differs from autograd of the plain version at {(H, N, L)}: "
+                     f"max abs error {err:.3g} (largest |grad| {float(b.abs().max()):.3g})")
+            bwd_err = max(bwd_err, err)
+
+        fns = {"": lambda: vandermonde_cuda.s4d_vandermonde_cuda(*args, L),
+               "plain_": lambda: s4d_vandermonde_plain(*args, L),
+               "bwd_": lambda: vandermonde_cuda.s4d_vandermonde_bwd_cuda(*args, g),
+               "bwd_plain_": lambda: torch.autograd.grad(K_plain, leaves, g, retain_graph=True)}
+        row = {"shape": [H, N, L]}
+        for key, fn in fns.items():
+            row[key + "ms"], row[key + "dev_ms"] = cuda_ms(fn), device_ms_per_call(fn)
+        row["bound_ms"], row["bound_by"] = vandermonde_bound_ms(H, N, L, backward=False)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = vandermonde_bound_ms(H, N, L, backward=True)
+        rows.append(row)
+        log(f"[kernel] s4d_vandermonde {(H, N, L)}: forward {row['ms']:.4f} ms, device {row['dev_ms']:.4f} "
+            f"(plain {row['plain_ms']:.4f}, device {row['plain_dev_ms']:.4f}; bound {row['bound_ms']:.5f} by "
+            f"{row['bound_by']}); backward {row['bwd_ms']:.4f} ms, device {row['bwd_dev_ms']:.4f} (plain autograd "
+            f"{row['bwd_plain_ms']:.4f}, device {row['bwd_plain_dev_ms']:.4f}; bound {row['bwd_bound_ms']:.5f} by "
+            f"{row['bwd_bound_by']})")
+    log(f"[kernel] s4d_vandermonde within tolerance on 5 shapes; max abs error forward {fwd_err:.3g}, "
+        f"backward {bwd_err:.3g}")
+    return rows, fwd_err, bwd_err
+
+
+def _metric_rows(log_dir: Path, tag: str) -> list[float]:
+    """The values of one tag in a run's metrics.csv."""
+    out = []
+    for line in (log_dir / "metrics.csv").read_text().splitlines():
+        _, name, value = line.split(",")
+        if name == tag:
+            out.append(float(value))
+    return out
+
+
+def _ckpt_params(path: Path) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)["params"]
+
+
+def run_trainer(flags: list[str], steps: int, tag: str) -> tuple[Path, float]:
+    """``train.main`` for `steps` steps; fails unless every
+    step's loss and the val loss are finite and every trainable parameter
+    moved away from its initialisation."""
+    from ssar_tpu_torch.train import train as trainer
+
+    batch = trainer.build_parser().parse_args(flags).batch_size
+    argv = flags + ["--n_examples", str(steps * batch), "--out_dir", str(ROOT / "build" / "chip_smoke_runs")]
+    t0 = time.perf_counter()
+    log_dir, val_loss = trainer.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    args = trainer.build_parser().parse_args(argv)
+    losses = _metric_rows(log_dir, f"Loss/{args.loss}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses) or not math.isfinite(val_loss):
+        fail(f"{tag}: {len(losses)} step losses (expected {steps}), finite={all(map(math.isfinite, losses))}, "
+             f"val {val_loss}")
+    torch.manual_seed(args.seed)  # main's initialisation, rebuilt on the CPU
+    init = trainer.make_model(args, np.zeros(59, np.float32), np.ones(59, np.float32),
+                              np.zeros((args.n_latent_split * args.hidden_size, 18, 512), np.float32))
+    final = _ckpt_params(trainer._latest_checkpoint(log_dir))
+    unchanged = [k for k, p in init.named_parameters() if torch.equal(p.detach(), final[k])]
+    if unchanged:
+        fail(f"{tag}: parameters unchanged after {steps} steps: {unchanged}")
+    log(f"[train] {tag}: {steps} steps in {seconds:.2f} s (main, evals and renders included); loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f}; val {val_loss:.5f}; {log_dir.relative_to(ROOT)}")
+    return log_dir, val_loss
+
+
+def timed_steps(dev, flags: list[str], data, ds, palette, steps: int = 20, warm: int = 3) -> dict:
+    """A warm loop of ``train_step_gather`` as ``main`` drives it (one int32
+    index vector uploaded per step): steps/s, examples/s, peak memory."""
+    from ssar_tpu_torch.train import train as trainer
+    from ssar_tpu_torch.train.data import compute_stats
+
+    args = trainer.build_parser().parse_args(flags)
+    mean, std = compute_stats(ds.features)
+    torch.manual_seed(args.seed)
+    model = trainer.make_model(args, mean, std, palette).to(dev)
+    opt = trainer.ClippedAdam([p for p in model.parameters() if p.requires_grad], args.lr, args.grad_clip)
+    _, step_gather, _ = trainer.make_train_step(model, opt, args.loss, dev)
+    gens = (torch.Generator(dev).manual_seed(1), torch.Generator(dev).manual_seed(2))
+    idx = ds.index_batches(args.batch_size, seed=args.seed)
+    for _ in range(warm):
+        step_gather(data, torch.as_tensor(next(idx), dtype=torch.int32).to(dev), gens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step_gather(data, torch.as_tensor(next(idx), dtype=torch.int32).to(dev), gens) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        fail(f"timed {args.loss}/{args.decoder}: non-finite loss")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step_gather(data, torch.as_tensor(next(idx), dtype=torch.int32).to(dev), gens)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation), key=lambda e: -e.self_device_time_total)
+    top = [(e.key[:60], round(e.self_device_time_total / 5e3, 4)) for e in kernels[:5]]
+    return {"steps_per_s": steps / seconds, "examples_per_s": steps * args.batch_size / seconds,
+            "ms_per_step": seconds / steps * 1e3, "peak_gib": peak, "device_ms_per_step": device_ms(prof) / 5,
+            "launches_per_step": sum(e.count for e in kernels) / 5, "top": top}
+
+
+def train_path(dev, feats: torch.Tensor) -> dict:
+    """Phase 6; returns the absdiff / Vandermonde launch counts of the
+    full-width ssabsdiff run."""
+    from ssar_tpu_torch.generate.audio2video import react
+    from ssar_tpu_torch.ops import absdiff_cuda, vandermonde_cuda
+    from ssar_tpu_torch.train import train as trainer
+    from ssar_tpu_torch.train.data import synthetic_dataset
+
+    # the cell's run: evals at the first and the last step, a checkpoint and a
+    # 256 px render after the first step and at the end
+    args = trainer.build_parser().parse_args(TRAIN_FLAGS)
+    B = args.batch_size
+    schedule = ["--eval_every", str((TRAIN_STEPS - 1) * B), "--ckpt_every", str(TRAIN_STEPS * B)]
+    absdiff_cuda.launches = vandermonde_cuda.launches = vandermonde_cuda.bwd_launches = 0
+    log_dir, _ = run_trainer(TRAIN_FLAGS + schedule, TRAIN_STEPS, "sashimi/fixed/ssabsdiff")
+    counts = {"absdiff": absdiff_cuda.launches, "s4d_vandermonde": vandermonde_cuda.launches,
+              "s4d_vandermonde_bwd": vandermonde_cuda.bwd_launches}
+    evals = len(_metric_rows(log_dir, "Loss/val")) * math.ceil(16 / B)  # batches: 16 val windows each
+    renders = sorted(log_dir.glob("sample_*.y4m")) + sorted(log_dir.glob("sample_*.mp4"))
+    # per step one forward and one backward Vandermonde per S4D layer and 5 absdiff (one per
+    # prediction); each eval batch the same forward; each render's reactor one forward per layer
+    n = args.num_layers
+    want = {"absdiff": 5 * (TRAIN_STEPS + evals), "s4d_vandermonde": n * (TRAIN_STEPS + evals + len(renders)),
+            "s4d_vandermonde_bwd": n * TRAIN_STEPS}
+    log(f"[train] launches in the ssabsdiff run: {counts} (expected {want}: {TRAIN_STEPS} steps, {evals} evals, "
+        f"{len(renders)} renders)")
+    if counts != want or min(counts.values()) == 0:
+        fail(f"kernel launches on the train path {counts}, expected {want}")
+    if len(renders) != 2:
+        fail(f"expected 2 checkpoint renders, found {[p.name for p in renders]}")
+    px, frames = args.render_size, min(args.duration, 4) * args.fps  # the render's synthetic clip
+    y4m_bytes = len(f"YUV4MPEG2 W{px} H{px} F{args.fps}:1 Ip A1:1 C420jpeg\n") + frames * (6 + px * px * 3 // 2)
+    for path in renders:  # .mp4 through cv2 where it is importable, else .y4m
+        size = path.stat().st_size
+        if (path.suffix == ".y4m" and size != y4m_bytes) or size == 0:
+            fail(f"render {path.name}: {size} bytes, expected {frames} frames at {px} px")
+    log(f"[train] renders: {[f'{p.name} {p.stat().st_size} B' for p in renders]}")
+
+    for flags, tag in ((["--loss", "selfsupervised"], "sashimi/fixed/selfsupervised"),
+                       (["--loss", "supervised"], "sashimi/fixed/supervised"),
+                       (["--loss", "supervised", "--decoder", "learned"], "sashimi/learned/supervised")):
+        run_trainer(TRAIN_FLAGS + flags + ["--eval_every", "1000000", "--ckpt_every", "1000000",
+                                           "--no-render_at_ckpt"], 10, tag)
+
+    # warm timed loops on the device-resident data main uses (64 windows, 8 s)
+    ds = synthetic_dataset(n_windows=64, n_frames=args.duration * args.fps)
+    data = ds.to_device(dev)
+    palette = np.random.RandomState(SEED).randn(args.n_latent_split * args.hidden_size, 18, 512).astype(np.float32)
+    log(f"[train] device-resident data {sum(a.nbytes for a in ds.arrays) / 1e9:.3f} GB")
+    for flags, tag in (([], "ssabsdiff/fixed"), (["--loss", "selfsupervised"], "selfsupervised/fixed"),
+                       (["--loss", "supervised"], "supervised/fixed"),
+                       (["--loss", "supervised", "--decoder", "learned"], "supervised/learned")):
+        r = timed_steps(dev, TRAIN_FLAGS + flags, data, ds, palette)
+        log(f"[train] timed train_step_gather {tag}: {r['steps_per_s']:.2f} steps/s = {r['examples_per_s']:.1f} "
+            f"examples/s ({r['ms_per_step']:.3f} ms/step, batch {B} x {args.duration * args.fps} frames); peak memory "
+            f"{r['peak_gib']:.3f} GiB; device busy {r['device_ms_per_step']:.3f} ms/step in "
+            f"{r['launches_per_step']:.0f} kernels (idle share >= {max(0.0, 1 - r['device_ms_per_step'] / r['ms_per_step']):.3f}); "
+            f"top device ms/step {r['top']}")
+    del data
+
+    # the trained sashimi reactor on the serve path (phase 4's features)
+    model = trainer.make_model(args, np.zeros(59, np.float32), np.ones(59, np.float32),
+                               np.zeros((args.n_latent_split * args.hidden_size, 18, 512), np.float32))
+    model.load_state_dict(_ckpt_params(trainer._latest_checkpoint(log_dir)))
+    model = model.to(dev).eval()
+    vandermonde_cuda.launches = 0
+    latents, noise = react(model, feats, torch.Generator(dev).manual_seed(SEED + 4))
+    torch.cuda.synchronize()
+    T = feats.shape[0]
+    if tuple(latents.shape) != (T, 18, 512) or [tuple(n.shape) for n in noise] != [(T, 1, s, s) for s in
+                                                                                   (4, 8, 16, 32)]:
+        fail(f"trained sashimi reactor: latents {tuple(latents.shape)}, noise {[tuple(n.shape) for n in noise]}")
+    if not (bool(torch.isfinite(latents).all()) and all(bool(torch.isfinite(n).all()) for n in noise)):
+        fail("trained sashimi reactor: non-finite output on the serve path's features")
+    if vandermonde_cuda.launches != args.num_layers:
+        fail(f"trained sashimi reactor launched the Vandermonde kernel {vandermonde_cuda.launches} times, "
+             f"expected {args.num_layers}")
+    log(f"[train] trained sashimi reactor on the serve features: latents {tuple(latents.shape)}, "
+        f"{vandermonde_cuda.launches} Vandermonde launches")
+    return counts
+
+
+class _CaptureGrads:
+    """An optimizer that keeps the gradients and leaves the parameters."""
+
+    def __init__(self, params):
+        self.params, self.grads = list(params), None
+
+    def step(self, grads):
+        self.grads = [g.detach().cpu() for g in grads]
+
+
+@contextlib.contextmanager
+def _injected_base_noise(base: dict):
+    """The reactor's smoothed base noise replaced by fixed maps (by size)."""
+    from ssar_tpu_torch.models import reactor
+
+    saved = reactor.smoothed_noise
+    reactor.smoothed_noise = lambda shape_bt, size, sigma=5.0, *, generator=None, device=None: \
+        torch.as_tensor(base[size], device=device)
+    try:
+        yield
+    finally:
+        reactor.smoothed_noise = saved
+
+
+def reference_step(dev):
+    """Phase 7: one ssabsdiff train step (hidden 4, 1 layer, T = 96, B = 2,
+    dropout 0, injected base noise) on the card, in full fp32, and on the CPU
+    from the same weights: loss within rtol 1e-4, each gradient within 1e-3
+    of its leaf's largest magnitude."""
+    from ssar_tpu_torch.train import train as trainer
+    from ssar_tpu_torch.train.data import compute_stats, synthetic_dataset
+    from ssar_tpu_torch.utils.device import full_precision
+
+    args = trainer.build_parser().parse_args(["--backbone", "sashimi", "--decoder", "fixed", "--loss", "ssabsdiff",
+                                              "--hidden_size", "4", "--num_layers", "1", "--dropout", "0"])
+    ds = synthetic_dataset(n_windows=2, n_frames=96, seed=3)
+    mean, std = compute_stats(ds.features)
+    torch.manual_seed(SEED)
+    cpu_model = trainer.make_model(args, mean, std, np.random.RandomState(SEED).randn(12, 18, 512).astype(np.float32))
+    with torch.no_grad():  # keep each split's envelope sum away from the env / env.sum pole
+        cpu_model.envelopes.out.bias[:12] += 1.0
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    rs = np.random.RandomState(SEED + 5)
+    base = {s: rs.randn(2, 96, s, s).astype(np.float32) for s in (4, 8, 16, 32)}
+
+    def step(model, device):
+        capture = _CaptureGrads(p for p in model.parameters() if p.requires_grad)
+        train_step = trainer.make_train_step(model, capture, "ssabsdiff", device)[0]
+        batch = tuple(torch.as_tensor(np.asarray(a, np.float32)).to(device) for a in ds.arrays)
+        with _injected_base_noise(base):
+            loss = float(train_step(batch, (None, None)))
+        return loss, capture.grads
+
+    with full_precision():
+        card_loss, card_grads = step(card_model, dev)
+    cpu_loss, cpu_grads = step(cpu_model, torch.device("cpu"))
+    if not (math.isfinite(card_loss) and abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)):
+        fail(f"reference step: loss on the card {card_loss!r}, on the CPU {cpu_loss!r}")
+    worst = 0.0
+    for (name, _), gc, gp in zip(((n, p) for n, p in cpu_model.named_parameters() if p.requires_grad),
+                                 card_grads, cpu_grads):
+        scale = float(gp.abs().max())
+        err = float((gc - gp).abs().max())
+        if not err <= 1e-3 * scale:
+            fail(f"reference step: gradient of {name} on the card differs by {err:.3g} (largest {scale:.3g})")
+        worst = max(worst, err / scale if scale else 0.0)
+    log(f"[reference] ssabsdiff step card vs CPU: loss {card_loss:.7f} vs {cpu_loss:.7f}; worst gradient error "
+        f"{worst:.3g} of its leaf's largest magnitude ({len(cpu_grads)} leaves)")
 
 
 def _to(tree, device):

@@ -3,7 +3,8 @@
 A copy of ``ssar_tpu/gan/video_io.py`` (numpy / cv2 / ffmpeg only), kept in
 the port so that it imports nothing of the JAX package.  Frames are encoded
 with cv2 (mp4v), imported lazily: a machine without cv2 can still import this
-module and render through another frame writer.  When an ``ffmpeg``
+module and render through another frame writer, such as ``Y4MWriter``
+(uncompressed I420, numpy only).  When an ``ffmpeg``
 executable is available the audio track is muxed in a post-pass, otherwise
 the request is recorded in a sidecar ``.audio.json``.
 
@@ -110,6 +111,43 @@ class VideoWriter:
                 "audio_offset": self.audio_offset,
                 "audio_duration": self.audio_duration,
             }))
+
+
+class Y4MWriter:
+    """Context manager writing uncompressed I420 frames to a YUV4MPEG2 (.y4m)
+    file, with numpy only: the frame writer for machines without cv2.
+    Takes the (H*3//2, W) uint8 frames of ``render.rgb_to_i420``."""
+
+    def __init__(self, output_file: str, output_size: tuple[int, int], fps: int = 24):
+        self.output_file = str(output_file)
+        self.output_size = tuple(int(x) for x in output_size)  # (W, H)
+        self.fps = int(fps)
+        self._f = None
+        self.frames_written = 0
+
+    def __enter__(self):
+        Path(self.output_file).parent.mkdir(parents=True, exist_ok=True)
+        W, H = self.output_size
+        self._f = open(self.output_file, "wb")
+        self._f.write(f"YUV4MPEG2 W{W} H{H} F{self.fps}:1 Ip A1:1 C420jpeg\n".encode())
+        return self
+
+    def write_i420(self, frame) -> None:
+        frame = np.asarray(frame)
+        W, H = self.output_size
+        if frame.shape != (H * 3 // 2, W) or frame.dtype != np.uint8:
+            raise ValueError(f"I420 frame {frame.shape} {frame.dtype} != uint8 {(H * 3 // 2, W)}")
+        self._f.write(b"FRAME\n")
+        self._f.write(np.ascontiguousarray(frame).tobytes())
+        self.frames_written += 1
+
+    def write(self, frame) -> None:
+        raise ValueError("Y4MWriter takes I420 frames (write_i420): use an output size with H % 4 == 0")
+
+    def __exit__(self, exc_type, exc, tb):
+        if self._f is not None:
+            self._f.close()
+        return False
 
 
 def write_video(tensor, output_file: str, fps: float = 24, audio_file: str | None = None) -> None:

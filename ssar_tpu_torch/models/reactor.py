@@ -1,42 +1,35 @@
-"""LatentNoiseReactor with the fixed palette decoder.
+"""LatentNoiseReactor — features -> StyleGAN2 W+ latents + noise pyramid.
 
 Counterpart of ``ssar_tpu/models/reactor.py``: an EnvelopeReactor
 (normalise -> Linear + GELU -> backbone -> GELU + Linear) produces per-frame
-envelopes that the FixedLatentNoiseDecoder turns into StyleGAN2 W+ sequences
-(B, T, n_ws, 512) plus a 4-level noise pyramid [(B, T, 4, 4) ... (B, T, 32, 32)].
+envelopes that a decoder turns into W+ sequences (B, T, n_ws, 512) plus a
+4-level noise pyramid [(B, T, 4, 4) ... (B, T, 32, 32)]:
+- ``FixedLatentNoiseDecoder``: convex-ish mixes of a frozen W+ palette;
+- ``LearnedLatentNoiseDecoder``: layerwise MLP heads and a (mu, sigma) noise
+  head (``noise_mode="musigma"``; the 3-D-conv pyramid is not ported).
 
-The decoder's base noise is time-smoothed standard noise.  JAX's random
-stream cannot be reproduced in torch, so the noise comes from a
-``torch.Generator`` or is injected by the caller (``base_noise``) — the
-parity tests inject the same arrays into both packages.  flax ``nn.gelu``
-defaults to the tanh approximation, and so does this port.
+The base noise is time-smoothed standard noise.  JAX's random stream cannot
+be reproduced in torch, so it comes from a ``torch.Generator`` or is injected
+by the caller (``base_noise``) — the parity tests inject the same arrays into
+both packages.  Dropout masks come from ``dropout_generator`` when training.
+Module names follow the flax modules (``load_flax``, ``flax_tree``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gaussian import gaussian_filter
-from .backbones import MultiLayerRNN
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+from ._flax import FlaxModule, dropout, gelu
+from .backbones import make_backbone
 
 
 def _buffer(a) -> torch.Tensor:
     """A float32 copy of a tensor (kept on its device) or of an array."""
     if isinstance(a, torch.Tensor):
-        return a.detach().to(torch.float32).clone()
-    return torch.as_tensor(np.asarray(a), dtype=torch.float32)
-
-
-def _dense_from_flax(linear: nn.Linear, p: dict) -> None:
-    with torch.no_grad():
-        linear.weight.copy_(torch.tensor(np.asarray(p["kernel"]).T))
-        linear.bias.copy_(torch.tensor(np.asarray(p["bias"])))
+        return a.detach().to(torch.float32).clone(memory_format=torch.contiguous_format)
+    return torch.tensor(np.asarray(a), dtype=torch.float32)
 
 
 class Normalize(nn.Module):
@@ -51,7 +44,7 @@ class Normalize(nn.Module):
         return (x - self.mean) / (self.std + 1e-8)
 
 
-class EnvelopeReactor(nn.Module):
+class EnvelopeReactor(FlaxModule):
     """(B, T, F) features -> (B, T, E) envelopes."""
 
     def __init__(self, input_mean, input_std, hidden_size: int = 64, output_size: int | None = None,
@@ -59,17 +52,15 @@ class EnvelopeReactor(nn.Module):
         super().__init__()
         self.normalize = Normalize(input_mean, input_std)
         self.inp = nn.Linear(self.normalize.mean.shape[-1], hidden_size)
-        self.backbone = MultiLayerRNN(hidden_size, num_layers, backbone.lower(), dropout)
+        self.backbone, self._backbone_name = make_backbone(backbone, hidden_size, num_layers, dropout)
         self.out = nn.Linear(hidden_size, hidden_size if output_size is None else output_size)
 
-    def forward(self, x):
-        h = _gelu(self.inp(self.normalize(x)))
-        return self.out(_gelu(self.backbone(h)))
+    def flax_children(self):
+        return {"Dense_0": self.inp, self._backbone_name: self.backbone, "Dense_1": self.out}
 
-    def load_flax(self, params: dict) -> None:
-        _dense_from_flax(self.inp, params["Dense_0"])
-        self.backbone.load_flax(params["MultiLayerRNN_0"])
-        _dense_from_flax(self.out, params["Dense_1"])
+    def forward(self, x, generator: torch.Generator | None = None):
+        h = gelu(self.inp(self.normalize(x)))
+        return self.out(gelu(self.backbone(h, generator)))
 
 
 def smoothed_noise(shape_bt: tuple[int, int], size: int, sigma: float = 5.0, *,
@@ -78,6 +69,12 @@ def smoothed_noise(shape_bt: tuple[int, int], size: int, sigma: float = 5.0, *,
     B, T = shape_bt
     n = torch.randn((T, B, size, size), generator=generator, device=device)
     return gaussian_filter(n, sigma).permute(1, 0, 2, 3)
+
+
+def _base(base_noise, i: int, x: torch.Tensor, size: int, generator) -> torch.Tensor:
+    if base_noise is not None:
+        return torch.as_tensor(base_noise[i], dtype=x.dtype, device=x.device)
+    return smoothed_noise((x.shape[0], x.shape[1]), size, generator=generator, device=x.device)
 
 
 class FixedLatentNoiseDecoder(nn.Module):
@@ -115,55 +112,133 @@ class FixedLatentNoiseDecoder(nn.Module):
         latents = torch.cat(outs, dim=2)
 
         noise_envs = x[..., S * H :]
-        B, T = x.shape[0], x.shape[1]
         noise = []
         for i in range(noise_envs.shape[-1] // 2):
             mu = noise_envs[..., 2 * i][..., None, None]
             sig = noise_envs[..., 2 * i + 1][..., None, None]
-            if base_noise is not None:
-                base = torch.as_tensor(base_noise[i], dtype=x.dtype, device=x.device)
-            else:
-                base = smoothed_noise((B, T), 2 ** (i + 2), generator=generator, device=x.device)
-            noise.append(mu + sig * base)
+            noise.append(mu + sig * _base(base_noise, i, x, 2 ** (i + 2), generator))
         return latents, noise
 
 
-class LatentNoiseReactor(nn.Module):
+class NoiseHead(FlaxModule):
+    """Learned per-scale (mu, sigma) noise head: each scale's two envelopes
+    come from a Dense(C // 2) -> GELU -> dropout -> Dense(2) head."""
+
+    def __init__(self, in_features: int, n_outputs: int = 4, dropout: float = 0.0):
+        super().__init__()
+        self.heads = nn.ModuleList(
+            nn.Sequential(nn.Linear(in_features, in_features // 2), nn.Linear(in_features // 2, 2))
+            for _ in range(n_outputs))
+        self.dropout = dropout
+
+    def flax_children(self):
+        return {f"Dense_{2 * i + j}": head[j] for i, head in enumerate(self.heads) for j in range(2)}
+
+    def forward(self, x, base_noise=None, generator=None, dropout_generator=None):
+        noise = []
+        for i, (hidden, mu_sig) in enumerate(self.heads):
+            h = dropout(gelu(hidden(x)), self.dropout, self.training, dropout_generator)
+            ms = mu_sig(h)
+            mu, sig = ms[..., 0][..., None, None], ms[..., 1][..., None, None]
+            noise.append(mu + sig * _base(base_noise, i, x, 2 ** (i + 2), generator))
+        return noise
+
+
+class LayerwiseLinear(FlaxModule):
+    """n_outputs W+ rows produced by n_layerwise independent two-layer MLPs."""
+
+    def __init__(self, in_features: int, out_channels: int = 512, n_outputs: int = 18, n_layerwise: int = 3,
+                 dropout: float = 0.0):
+        super().__init__()
+        if n_outputs % n_layerwise:
+            raise ValueError(f"n_outputs {n_outputs} is not a multiple of n_layerwise {n_layerwise}")
+        self.per, self.out_channels = n_outputs // n_layerwise, out_channels
+        self.heads = nn.ModuleList(
+            nn.Sequential(nn.Linear(in_features, out_channels), nn.Linear(out_channels, self.per * out_channels))
+            for _ in range(n_layerwise))
+        self.dropout = dropout
+
+    def flax_children(self):
+        return {f"Dense_{2 * i + j}": head[j] for i, head in enumerate(self.heads) for j in range(2)}
+
+    def forward(self, x, dropout_generator=None):
+        outs = []
+        for first, second in self.heads:
+            h = dropout(gelu(first(x)), self.dropout, self.training, dropout_generator)
+            outs.append(second(h).reshape(x.shape[0], x.shape[1], self.per, self.out_channels))
+        return torch.cat(outs, dim=2)  # (B, T, n_outputs, 512)
+
+
+class LearnedLatentNoiseDecoder(FlaxModule):
+    """Envelopes -> GELU -> dropout -> (LayerwiseLinear latents, NoiseHead noise)."""
+
+    def __init__(self, in_features: int, n_ws: int = 18, n_latent_split: int = 3, n_noise: int = 4,
+                 dropout: float = 0.0, noise_mode: str = "musigma"):
+        super().__init__()
+        if noise_mode != "musigma":
+            raise NotImplementedError(f"noise_mode={noise_mode!r} is not ported yet (ROADMAP A3)")
+        self.layerwise = LayerwiseLinear(in_features, 512, n_ws, n_latent_split, dropout)
+        self.noise_head = NoiseHead(in_features, n_noise, dropout)
+        self.dropout = dropout
+
+    def flax_children(self):
+        return {"LayerwiseLinear_0": self.layerwise, "NoiseHead_0": self.noise_head}
+
+    def forward(self, x, base_noise=None, generator=None, dropout_generator=None):
+        h = dropout(gelu(x), self.dropout, self.training, dropout_generator)
+        latents = self.layerwise(h, dropout_generator)
+        return latents, self.noise_head(h, base_noise, generator, dropout_generator)
+
+
+class LatentNoiseReactor(FlaxModule):
     """features (B, T, F) -> (latents (B, T, n_ws, 512), [4 noise maps]).
 
-    Only ``decoder="fixed"`` with the GRU backbone is ported.  Build it on the
-    CPU and move it with ``.to(device)``; ``load_flax`` copies the JAX
-    package's parameters in.
+    Backbones "sashimi" (the default, as in the JAX package) and "gru";
+    decoders "fixed" (needs the W+ palette ``latents``) and "learned".  Build
+    it on the CPU and move it with ``.to(device)``; ``load_flax`` copies the
+    JAX package's variables in.
     """
 
     def __init__(self, input_mean, input_std, latents=None, env_guard_eps: float = 0.0,
-                 residual: bool = True, num_layers: int = 2, backbone: str = "gru",
+                 residual: bool = True, num_layers: int = 2, backbone: str = "sashimi",
                  hidden_size: int = 64, decoder: str = "fixed", n_latent_split: int = 3,
-                 n_noise: int = 4, dropout: float = 0.0):
+                 n_noise: int = 4, dropout: float = 0.0, n_ws: int = 18, noise_mode: str = "musigma"):
         super().__init__()
-        if decoder != "fixed":
-            raise NotImplementedError(f"only the fixed decoder is ported, got decoder={decoder!r}")
-        if latents is None:
-            raise ValueError("the fixed decoder needs a W+ palette (latents)")
+        if decoder not in ("fixed", "learned"):
+            raise ValueError(f"unknown decoder {decoder!r}")
         self.residual = residual
-        n_envelopes = hidden_size * n_latent_split + 2 * n_noise
+        n_envelopes = hidden_size * n_latent_split + 2 * n_noise if decoder == "fixed" else hidden_size
         self.envelopes = EnvelopeReactor(input_mean, input_std, hidden_size=n_envelopes,
                                          num_layers=num_layers, backbone=backbone, dropout=dropout)
-        self.decoder = FixedLatentNoiseDecoder(latents, hidden_size, n_latent_split, n_noise,
-                                               env_guard_eps=env_guard_eps)
+        if decoder == "fixed":
+            if latents is None:
+                raise ValueError("the fixed decoder needs a W+ palette (latents)")
+            self.decoder = FixedLatentNoiseDecoder(latents, hidden_size, n_latent_split, n_noise,
+                                                   env_guard_eps=env_guard_eps)
+        else:
+            self.decoder = LearnedLatentNoiseDecoder(n_envelopes, n_ws, n_latent_split, n_noise, dropout,
+                                                     noise_mode=noise_mode)
+
+    def flax_children(self):
+        children = {"EnvelopeReactor_0": self.envelopes}
+        if isinstance(self.decoder, LearnedLatentNoiseDecoder):
+            children["LearnedLatentNoiseDecoder_0"] = self.decoder
+        return children
 
     def forward(self, x, base_noise: list | None = None, generator: torch.Generator | None = None,
-                return_envelopes: bool = False):
-        envelopes = self.envelopes(x)
+                dropout_generator: torch.Generator | None = None, return_envelopes: bool = False):
+        envelopes = self.envelopes(x, dropout_generator)
         if return_envelopes:
             return envelopes
-        latents, noise = self.decoder(envelopes, base_noise=base_noise, generator=generator)
+        if isinstance(self.decoder, FixedLatentNoiseDecoder):
+            latents, noise = self.decoder(envelopes, base_noise=base_noise, generator=generator)
+        else:
+            latents, noise = self.decoder(envelopes, base_noise=base_noise, generator=generator,
+                                          dropout_generator=dropout_generator)
         if self.residual:
             latents = latents - latents.mean(dim=1, keepdim=True)
         return latents, noise
 
     def load_flax(self, variables: dict) -> "LatentNoiseReactor":
         """Copy a flax ``LatentNoiseReactor``'s variables ({"params": ...}) in."""
-        params = variables.get("params", variables)
-        self.envelopes.load_flax(params["EnvelopeReactor_0"])
-        return self
+        return super().load_flax(variables.get("params", variables))

@@ -6,18 +6,24 @@ Imports nothing of JAX, so it also runs on a machine with a card and no JAX:
 
 Without a CUDA card every test skips (the kernels have no CPU mode); the
 CPU tests hold the plain versions against the JAX package.  The median is
-compared exactly: it selects one of the window's elements.
+compared exactly: it selects one of the window's elements.  absdiff at rtol
+1e-5 (float32 sums of positive terms in another order) and bit for bit
+between two launches; the S4D Vandermonde kernel and its backward at rtol
+1e-4 with an atol of 1e-5 of the largest magnitude (exp / sin / cos of the
+same fp32 products, summed in another order).
 """
 import pytest
 import torch
 
+from ssar_tpu_torch.ops.absdiff import batch_absdiff, batch_absdiff_plain
 from ssar_tpu_torch.ops.median import median_filter, median_filter_plain
+from ssar_tpu_torch.ops.vandermonde import s4d_vandermonde, s4d_vandermonde_plain
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the sliding-median kernel has no CPU mode")
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -44,3 +50,63 @@ def test_median_cuda_other_axis_and_errors(cuda_device):
         median_filter(torch.rand(4, 10, device=cuda_device), 31)   # reflect pad needs > k // 2 samples
     with pytest.raises(TypeError):
         median_filter(torch.rand(4, 40, device=cuda_device, dtype=torch.float64), 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 192, 9216), (2, 192, 16), (3, 33, 7), (5, 2, 100), (1, 9, 1)])
+def test_absdiff_cuda_kernel_matches_plain(cuda_device, shape):
+    from ssar_tpu_torch.ops import absdiff_cuda
+
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    before = absdiff_cuda.launches
+    got = batch_absdiff(x)
+    again = batch_absdiff(x)
+    assert absdiff_cuda.launches == before + 2
+    torch.testing.assert_close(got, batch_absdiff_plain(x), rtol=1e-5, atol=0)
+    assert torch.equal(got, again)
+    with pytest.raises(TypeError):
+        absdiff_cuda.batch_absdiff_cuda(x.double())
+
+
+def _s4d_inputs(H: int, N: int, device):
+    """The four (H, N) Vandermonde inputs of a freshly initialised S4D layer."""
+    from ssar_tpu_torch.models.s4 import S4DLayer
+    from ssar_tpu_torch.ops.vandermonde import zoh_factors
+
+    torch.manual_seed(H * 1000 + N)
+    layer = S4DLayer(H, 2 * N).to(device)
+    with torch.no_grad():
+        return [t.contiguous() for t in zoh_factors(layer.log_dt, layer._A_re(), layer.A_im, layer.C_re,
+                                                    layer.C_im)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,N,L", [(104, 32, 192), (32, 32, 192), (13, 7, 1000), (3, 1, 5)])
+def test_vandermonde_cuda_kernels_match_plain(cuda_device, H, N, L):
+    from ssar_tpu_torch.ops import vandermonde_cuda
+
+    leaves = [t.requires_grad_() for t in _s4d_inputs(H, N, cuda_device)]
+    g = torch.randn(H, L, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    fwd, bwd = vandermonde_cuda.launches, vandermonde_cuda.bwd_launches
+    K = s4d_vandermonde(*leaves, L)
+    got = torch.autograd.grad(K, leaves, g)
+    assert (vandermonde_cuda.launches, vandermonde_cuda.bwd_launches) == (fwd + 1, bwd + 1)
+    K_plain = s4d_vandermonde_plain(*leaves, L)
+    want = torch.autograd.grad(K_plain, leaves, g)
+    K, K_plain = K.detach(), K_plain.detach()
+    torch.testing.assert_close(K, K_plain, rtol=1e-4, atol=1e-5 * float(K_plain.abs().max()))
+    for name, a, b in zip(("a", "b", "cre", "cim"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()), msg=name)
+
+
+@pytest.mark.cuda
+def test_vandermonde_cuda_rejects_what_it_does_not_take(cuda_device):
+    from ssar_tpu_torch.ops import vandermonde_cuda
+
+    a = torch.zeros(4, 8, device=cuda_device)
+    with pytest.raises(TypeError):
+        vandermonde_cuda.s4d_vandermonde_cuda(a.double(), a.double(), a.double(), a.double(), 10)
+    with pytest.raises(ValueError):
+        vandermonde_cuda.s4d_vandermonde_cuda(a, a, a, a[:2], 10)
+    with pytest.raises(ValueError):
+        vandermonde_cuda.s4d_vandermonde_cuda(a, a, a, a, 0)

@@ -81,5 +81,8 @@ def test_reactor_draws_noise_from_generator():
 
 
 def test_reactor_rejects_unported_decoders():
+    # the learned decoder is ported; its 3-D-conv noise pyramid is not
     with pytest.raises(NotImplementedError):
-        LatentNoiseReactor(np.zeros(5), np.ones(5), np.zeros((6, 18, 512)), decoder="learned")
+        LatentNoiseReactor(np.zeros(5), np.ones(5), decoder="learned", noise_mode="conv3d")
+    with pytest.raises(ValueError):
+        LatentNoiseReactor(np.zeros(5), np.ones(5), np.zeros((6, 18, 512)), decoder="other")

@@ -7,6 +7,7 @@ order statistics and are held at 1e-6.
 """
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,3 +152,101 @@ def test_fused_leaky_relu_and_upsample(rng):
     _close(t_up.fused_leaky_relu(xt, torch.as_tensor(b)).permute(0, 2, 3, 1),
            j_up.fused_leaky_relu(jnp.asarray(x), jnp.asarray(b)))
     _close(t_up.upsample2x(xt).permute(0, 2, 3, 1), j_up.upsample2x(jnp.asarray(x)))
+
+
+# ------------------------------------------------------------- absdiff (B2) --
+# float32 sums of |differences| taken in another order: rtol 1e-5, atol 1e-4
+# (as tests/test_ops.py holds the Pallas kernel against absdiff_ref)
+j_absdiff = importlib.import_module("ssar_tpu.ops.absdiff")
+from ssar_tpu_torch.ops import absdiff as t_absdiff  # noqa: E402
+
+
+@pytest.mark.parametrize("shape", [(33, 3, 8, 8), (17, 5), (2, 7), (96, 16)])
+def test_absdiff_matches_jax_ref_and_pallas_interpret(rng, shape):
+    x = rng.randn(*shape).astype(np.float32)
+    got = t_absdiff.absdiff(torch.as_tensor(x)).numpy()
+    assert got.shape == (shape[0],)
+    np.testing.assert_allclose(got, np.asarray(j_absdiff.absdiff_ref(jnp.asarray(x))), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got, np.asarray(j_absdiff.absdiff_pallas(jnp.asarray(x))), rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(got, t_absdiff.absdiff_plain(torch.as_tensor(x)).numpy())
+
+
+def test_batch_absdiff_matches_vmap(rng):
+    x = rng.randn(3, 20, 4, 4).astype(np.float32)
+    want = jax.vmap(j_absdiff.absdiff_ref)(jnp.asarray(x))
+    np.testing.assert_allclose(t_absdiff.batch_absdiff(torch.as_tensor(x)).numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError):
+        t_absdiff.batch_absdiff(torch.zeros(2, 1, 3))
+
+
+@pytest.mark.parametrize("shape", [(9, 4), (2, 6), (12, 3, 5)])
+def test_absdiff_grad_matches_jax(rng, shape):
+    x = rng.randn(*shape).astype(np.float32)
+    w = np.arange(shape[0], dtype=np.float32)
+    want = jax.grad(lambda a: jnp.sum(j_absdiff.absdiff(a) * jnp.asarray(w)))(jnp.asarray(x))
+    xt = torch.as_tensor(x).requires_grad_()
+    (t_absdiff.absdiff(xt) * torch.as_tensor(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# ----------------------------------------------------- S4D Vandermonde (B3) --
+# rtol 1e-4, atol 1e-5, as tests/test_ops.py holds the Pallas kernel against
+# the complex s4d_kernel: exp/cos/sin of the same fp32 products, summed over N
+# in another order
+j_vdm = importlib.import_module("ssar_tpu.ops.vandermonde")
+from ssar_tpu_torch.ops import vandermonde as t_vdm  # noqa: E402
+
+
+def _vdm_inputs(rng, H, N):
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (H, 1)))
+    a = (-0.5 * np.ones((H, N)) * dt).astype(np.float32)
+    b = (np.pi * np.arange(N)[None] * dt).astype(np.float32)
+    cre = (rng.randn(H, N) * 0.3).astype(np.float32)
+    cim = (rng.randn(H, N) * 0.3).astype(np.float32)
+    return a, b, cre, cim
+
+
+@pytest.mark.parametrize("H,N,L", [(12, 16, 100), (13, 7, 300), (4, 32, 192)])
+def test_vandermonde_plain_matches_jax_ref(rng, H, N, L):
+    args = _vdm_inputs(rng, H, N)
+    want = np.asarray(j_vdm.s4d_vandermonde_ref(*map(jnp.asarray, args), L))
+    got = t_vdm.s4d_vandermonde(*map(torch.as_tensor, args), L).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got, t_vdm.s4d_vandermonde_plain(*map(torch.as_tensor, args), L).numpy())
+
+
+@pytest.mark.parametrize("H,N,L", [(8, 32, 192), (5, 7, 256)])
+def test_vandermonde_matches_pallas_interpret(rng, H, N, L):
+    """One grid block of the Pallas kernel (h_blk 8, l_blk 256), in interpret mode."""
+    args = _vdm_inputs(rng, H, N)
+    want = np.asarray(j_vdm.s4d_vandermonde_pallas(*map(jnp.asarray, args), L))
+    got = t_vdm.s4d_vandermonde(*map(torch.as_tensor, args), L).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("H,N,L", [(6, 8, 50), (13, 7, 120)])
+def test_vandermonde_grads_match_jax_vjp(rng, H, N, L):
+    args = _vdm_inputs(rng, H, N)
+    g = rng.randn(H, L).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: j_vdm.s4d_vandermonde_ref(*a, L), *map(jnp.asarray, args))
+    want = vjp(jnp.asarray(g))
+    leaves = [torch.as_tensor(a).requires_grad_() for a in args]
+    got = torch.autograd.grad(t_vdm.s4d_vandermonde(*leaves, L), leaves, torch.as_tensor(g))
+    for name, gt, gw in zip(("a", "b", "cre", "cim"), got, want):
+        gw = np.asarray(gw)
+        np.testing.assert_allclose(gt.numpy(), gw, rtol=1e-4, atol=1e-5 * np.abs(gw).max(), err_msg=name)
+
+
+def test_s4d_kernel_fused_matches_jax(rng):
+    H, N, L = 12, 16, 100
+    log_dt = np.log(rng.uniform(1e-3, 1e-1, H)).astype(np.float32)
+    A_re = (-0.5 * np.ones((H, N))).astype(np.float32)
+    A_im = (np.pi * np.arange(N)[None].repeat(H, 0)).astype(np.float32)
+    C_re, C_im = (rng.randn(2, H, N) * 0.3).astype(np.float32)
+    args = (log_dt, A_re, A_im, C_re, C_im)
+    want = np.asarray(j_vdm.s4d_kernel_fused(*map(jnp.asarray, args), L, use_pallas=False))
+    got = t_vdm.s4d_kernel_fused(*map(torch.as_tensor, args), L).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    plain = t_vdm.s4d_vandermonde_plain(*t_vdm.zoh_factors(*map(torch.as_tensor, args)), L).numpy()
+    np.testing.assert_allclose(plain, want, rtol=1e-4, atol=1e-5)
