@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serve and train paths once on one CUDA card and check them.
+"""Drive the PyTorch port's serve, train and test-time-optimization paths once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -11,6 +11,11 @@ Phases (any failure exits non-zero and prints no result line):
   3b. kernel check: absdiff (B2) and the S4D Vandermonde forward and backward
      (B3) against their plain versions at the train path's shapes, a 3-minute
      track's and ragged ones, with their times, plain times and bounds;
+  3c. kernel check: the sliding median's backward (B1 bwd) against its plain
+     version (torch.equal) at the HPSS shapes on both axes, the optimize
+     path's (2n, n) k = 7 and (n, n) k = 9, batched and ragged shapes, inputs
+     with ties and a constant row; two launches bit-identical; its times,
+     the plain version's and its bound;
   4. serve path: a synthetic 8 s track at 44.1 kHz -> audio2features (192, 59)
      -> GRU LatentNoiseReactor (hidden 32, 4 layers, random (96, 18, 512)
      palette) -> 1024 px StyleGAN2 (random weights from the seed, bf16) ->
@@ -23,11 +28,23 @@ Phases (any failure exits non-zero and prints no result line):
      layers, batch 32, 8 s windows at 24 fps) on 64 synthetic windows, 40
      steps with evals, checkpoints and 256 px renders under build/; the
      absdiff and Vandermonde launch counts are read around this run only.
-     Then 10 steps each of the other loss modes and of the learned decoder,
+     Then 4 steps each of the other loss modes and of the learned decoder,
      a warm timed loop of ``train_step_gather`` per mode, and the trained
      sashimi reactor on phase 4's features;
   7. reference check: one ssabsdiff train step at a small width on the card
-     and on the CPU, with the same weights, batch and base noise.
+     and on the CPU, with the same weights, batch and base noise;
+  8. optimize path, comparison configuration: ``generate.optimize.optimize``
+     on a synthetic 40 s track at 44.1 kHz (960 frames), procrustes
+     objective, 3x3x3 latents + 5 noise maps, N = 128, 512 steps; then
+     ``_render_eval`` of 192 of its frames at 1024 px into an in-memory sink;
+  9. optimize path, standalone configuration with the segmentation loss
+     (rv2 objective, N = 512, 6 latents + 6 noise maps, lambda_lap = 1,
+     prediction_similarity_penalty = 0.1), 8 steps; the sliding median's
+     forward and backward launch counts are read around this run only and
+     checked exactly;
+  10. reference check: loss and gradient of both configurations at a small
+     size on the card and on the CPU from the same initial envelopes, noise
+     draws and palette.
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
@@ -119,6 +136,17 @@ def median_bound_ms(numel: int, k: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def median_bwd_bound_ms(numel: int, k: int) -> tuple[float, str, float]:
+    """Least time for one sliding-median backward: x, out and g read once and
+    gx written once (16 B an element at 3.35 TB/s), against at most k compares
+    for the first-equal-tap search and k compare-and-adds for the gather (3k
+    fp32 operations an element at 67 TFLOP/s).  Also returns the operations
+    time, the smaller of the two at every k <= 31."""
+    t_bytes = 4 * 4 * numel / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * k * numel / FP32_PEAK_OPS * 1e3
+    return (t_ops, "operations", t_ops) if t_ops >= t_bytes else (t_bytes, "bytes", t_ops)
+
+
 def absdiff_bound_ms(B: int, T: int, E: int) -> tuple[float, str]:
     """Least time for one batched absdiff: x (B, T, E) fp32 read once and
     y (B, T) written once at 3.35 TB/s, against a subtract, an absolute value
@@ -148,12 +176,23 @@ def within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> t
     return bool((err <= atol + rtol * want.abs()).all()), float(err.max())
 
 
-def synthetic_track(sr: int, seconds: float) -> np.ndarray:
-    """Chirp-modulated tone + noise + clicks every half second."""
+def synthetic_track(sr: int, seconds: float, section_seconds: float | None = None) -> np.ndarray:
+    """Chirp-modulated tone + noise + clicks every half second.  With
+    `section_seconds` the tone steps through a four-chord cycle, one chord
+    (root, third, fifth) per section, and every other section is louder: a
+    track with structure for the segmentation to find."""
     t = np.arange(int(sr * seconds)) / sr
     rng = np.random.RandomState(SEED)
-    audio = (0.4 * np.sin(2 * np.pi * 220 * t * (1 + 0.05 * np.sin(2 * np.pi * t / 7)))
-             + 0.1 * rng.randn(len(t))).astype(np.float32)
+    wobble = 1 + 0.05 * np.sin(2 * np.pi * t / 7)
+    if section_seconds is None:
+        tone = 0.4 * np.sin(2 * np.pi * 220 * t * wobble)
+    else:
+        section = (t // section_seconds).astype(int)
+        root = 220.0 * 2 ** (np.array([0, 5, 7, 3])[section % 4] / 12)
+        gain = np.where(section % 2 == 0, 0.25, 0.4)
+        phase = 2 * np.pi * np.cumsum(root * wobble) / sr
+        tone = gain * (np.sin(phase) + 0.5 * np.sin(phase * 2 ** (4 / 12)) + 0.5 * np.sin(phase * 2 ** (7 / 12))) / 2
+    audio = (tone + 0.1 * rng.randn(len(t))).astype(np.float32)
     audio[:: sr // 2] += 1.0
     return audio
 
@@ -239,6 +278,11 @@ def main():
                 log(f"[kernel] sliding_median {shape} k={k} axis={axis}: {ms:.4f} ms, device {dev_ms:.4f} ms "
                     f"(plain {plain:.3f} ms, bound {bound:.4f} ms by {by})")
     log(f"[kernel] sliding_median bit-exact on {len(checks)} shapes x both axes")
+
+    # --------------------------------------------------------------- 3c --
+    track40 = synthetic_track(44100, 40.0, section_seconds=8.0)
+    n_sync = beat_sync_frames(track40, 44100, dev)
+    bwd_rows, bwd_err = check_median_bwd(dev, n_sync)
 
     # --------------------------------------------------------------- 3b --
     absdiff_rows, absdiff_err = check_absdiff(dev)
@@ -340,6 +384,11 @@ def main():
     # ---------------------------------------------------------------- 7 --
     reference_step(dev)
 
+    # ----------------------------------------------------------- 8, 9, 10 --
+    optimize_comparison(dev, track40, config)
+    opt_counts = optimize_standalone(dev, track40, n_sync)
+    reference_optimize(dev)
+
     main_row = [r for r in rows if r["shape"] == [1025, 193]]
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
     ad_path = [r for r in absdiff_rows if r["path"]]
@@ -354,7 +403,13 @@ def main():
         "name": "sliding_median", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": launches, "max_abs_err": max_err,
         # one HPSS at the main path's shape: the time-axis and the frequency-axis filter of (1025, 193)
-        **sums(main_row), "library_ms": None,
+        **sums(main_row), "library_ms": None, "launches_optimize": opt_counts["sliding_median"],
+    }, {
+        "name": "sliding_median_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median_bwd.cu",
+        "replaces": "ssar_tpu/ops/median_pallas.py:110", "launches": opt_counts["sliding_median_bwd"],
+        "max_abs_err": bwd_err,
+        # one prediction's pair on the optimize path: (2n, n) k = 7 and (n, n) k = 9
+        **sums([r for r in bwd_rows if r["path"]]), "library_ms": None,
     }, {
         "name": "absdiff", "route": "cuda", "source": "ssar_tpu_torch/csrc/absdiff.cu",
         "replaces": "ssar_tpu/ops/absdiff.py:38", "launches": train_counts["absdiff"],
@@ -372,6 +427,82 @@ def main():
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def beat_sync_frames(track: np.ndarray, sr: int, dev) -> int:
+    """The number of beat-synchronous frames the optimize path's segmentation
+    makes of `track`: the host beat tracker on the onset envelope of the
+    track at 1024 * FPS, beats strictly inside the clip, plus one."""
+    from ssar_tpu_torch.audio.beat import onset_strength
+    from ssar_tpu_torch.audio.beat_host import beat_track
+    from ssar_tpu_torch.ops.resample import resample
+    from ssar_tpu_torch.utils.device import full_precision
+
+    target = 1024 * FPS
+    with torch.no_grad(), full_precision():
+        audio = resample(torch.as_tensor(track, device=dev), sr, target, lowpass_filter_width=6)
+        env = onset_strength(audio, target).cpu().numpy()
+    _, beats = beat_track(env, sr=target, hop_length=1024)
+    return len([b for b in beats if 0 < b < audio.shape[0] // 1024]) + 1
+
+
+def check_median_bwd(dev, n_sync: int):
+    """B1's backward against its plain version, bit for bit (the kernel
+    gathers in the order the plain version adds): HPSS shapes on both axes,
+    the optimize path's (2n, n) k = 7 and (n, n) k = 9 at the 40 s track's n,
+    batched and ragged shapes; on distinct values and on quantised values
+    with a constant row; two launches equal."""
+    from ssar_tpu_torch.ops import median_cuda
+    from ssar_tpu_torch.ops.median import median_filter, sliding_median_bwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n = n_sync
+    path = [((2 * n, n), 7), ((n, n), 9)]
+    timed = [((1025, 193), 31), ((1025, 4320), 31)] + path
+    checks = timed + [((4, 1025, 300), 31), ((1000, 100), 31), ((37, 16), 31), ((3, 53, 77), 7), ((130, 70), 9),
+                      ((5, 9), 9), ((3, 5, 40), 1)]
+    rows, max_err = [], 0.0
+    for shape, k in checks:
+        for ties in (False, True):
+            x = torch.randn(shape, generator=g, device=dev)
+            if ties:
+                x = torch.round(x * 2) / 2
+                x[..., 0, :] = 1.0
+            cot = torch.randn(shape, generator=g, device=dev)
+            for axis in (-1, -2):
+                if x.shape[axis] <= k // 2:
+                    continue
+                leaf = x.clone().requires_grad_()
+                out = median_filter(leaf, k, axis)
+                before = median_cuda.bwd_launches
+                (got,) = torch.autograd.grad(out, leaf, cot)
+                if median_cuda.bwd_launches != before + 1:
+                    fail(f"median_filter's backward did not launch the kernel at {shape}, k={k}, axis={axis}")
+                out = out.detach()
+                again = median_cuda.sliding_median_bwd_cuda(x, out, cot, k, axis % x.ndim)
+                want = sliding_median_bwd_plain(x, out, cot, k, axis)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    fail(f"sliding median backward differs from the plain version at {shape}, k={k}, axis={axis}, "
+                         f"ties={ties}: max abs error {float((got - want).abs().max()):.3g}")
+                if not torch.equal(got, again):
+                    fail(f"sliding median backward: two launches differ at {shape}, k={k}, axis={axis}")
+                max_err = max(max_err, float((got - want).abs().max()))
+                if ties or (shape, k) not in timed or ((shape, k) in path and axis != -1):
+                    continue
+                fn = lambda: median_cuda.sliding_median_bwd_cuda(x, out, cot, k, axis % x.ndim)
+                plain = lambda: sliding_median_bwd_plain(x, out, cot, k, axis)
+                row = {"shape": list(shape), "k": k, "axis": axis, "path": (shape, k) in path, "ms": cuda_ms(fn),
+                       "dev_ms": device_ms_per_call(fn), "plain_ms": cuda_ms(plain, runs=10),
+                       "plain_dev_ms": device_ms_per_call(plain, calls=5)}
+                row["bound_ms"], row["bound_by"], ops_ms = median_bwd_bound_ms(x.numel(), k)
+                rows.append(row)
+                log(f"[kernel] sliding_median_bwd {shape} k={k} axis={axis}: {row['ms']:.4f} ms, device "
+                    f"{row['dev_ms']:.4f} ms (plain {row['plain_ms']:.4f}, device {row['plain_dev_ms']:.4f}; bound "
+                    f"{row['bound_ms']:.5f} ms by {row['bound_by']}, operations {ops_ms:.5f} ms)")
+    log(f"[kernel] sliding_median_bwd bit-exact on {len(checks)} shapes x both axes x (distinct, tied) inputs; "
+        f"two launches bit-identical; n_sync {n}")
+    return rows, max_err
 
 
 def check_absdiff(dev):
@@ -590,7 +721,7 @@ def train_path(dev, feats: torch.Tensor) -> dict:
                        (["--loss", "supervised"], "sashimi/fixed/supervised"),
                        (["--loss", "supervised", "--decoder", "learned"], "sashimi/learned/supervised")):
         run_trainer(TRAIN_FLAGS + flags + ["--eval_every", "1000000", "--ckpt_every", "1000000",
-                                           "--no-render_at_ckpt"], 10, tag)
+                                           "--no-render_at_ckpt"], 4, tag)
 
     # warm timed loops on the device-resident data main uses (64 windows, 8 s)
     ds = synthetic_dataset(n_windows=64, n_frames=args.duration * args.fps)
@@ -698,6 +829,223 @@ def reference_step(dev):
         worst = max(worst, err / scale if scale else 0.0)
     log(f"[reference] ssabsdiff step card vs CPU: loss {card_loss:.7f} vs {cpu_loss:.7f}; worst gradient error "
         f"{worst:.3g} of its leaf's largest magnitude ({len(cpu_grads)} leaves)")
+
+
+# the comparison study's optimizer settings (the reference's metrics/comparison.py)
+COMPARISON = dict(objective="procrustes", norm_grads=False, n_latent_split=3, n_latent_groups=3, n_latent_per_group=3,
+                  n_noise=5, n_params=128, log_steps=16, use_audio_segmentation_features=True,
+                  feature_weight_boosts={"onsets": 3.0, "rms": 10.0, "rosa_segmentation": 2.0, "drop_strength": 10.0})
+# the standalone optimizer's defaults with the segmentation loss switched on
+STANDALONE = dict(objective="rv2", n_params=512, n_latent_split=1, n_latent_groups=1, n_latent_per_group=6,
+                  n_noise=6, lambda_lap=1.0, prediction_similarity_penalty=0.1)
+
+
+def profiled_steps(problem, steps: int) -> dict:
+    """torch.profiler over `steps` optimizer steps of a prepared problem:
+    wall ms, device-busy ms and kernels a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssar_tpu_torch.train.train import ClippedAdam
+    from ssar_tpu_torch.utils.device import full_precision
+
+    opt = ClippedAdam([problem.hippo.c], 1e-3)
+
+    def step():
+        loss = problem.loss_fn()
+        opt.step(torch.autograd.grad(loss, [problem.hippo.c]))
+
+    with full_precision():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation), key=lambda e: -e.self_device_time_total)
+    return {"profiled_ms_per_step": wall, "device_ms_per_step": device_ms(prof) / steps,
+            "kernels_per_step": sum(e.count for e in kernels) / steps,
+            "top": [(e.key[:60], round(e.self_device_time_total / steps / 1e3, 4)) for e in kernels[:5]]}
+
+
+def timed_optimize(**kwargs):
+    """``optimize(**kwargs)`` with its ``prepare`` call timed and its problem
+    kept: returns (optimize's result, the Problem, seconds of "features",
+    "hippo", "prepare" (all of the set-up) and "steps" (the rest of the call))."""
+    from ssar_tpu_torch.generate import optimize as opt
+
+    kept, prepare = {}, opt.prepare
+
+    def timed_prepare(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept["problem"] = prepare(*a, **k)
+        torch.cuda.synchronize()
+        kept["prepare"] = time.perf_counter() - t0
+        return kept["problem"]
+
+    opt.prepare = timed_prepare
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(None):
+            result = opt.optimize(out_dir=str(ROOT / "build" / "chip_smoke_runs"), seed=SEED, **kwargs)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        opt.prepare = prepare
+    problem = kept["problem"]
+    return result, problem, dict(problem.seconds, prepare=kept["prepare"], steps=total - kept["prepare"])
+
+
+def optimize_comparison(dev, track: np.ndarray, config):
+    """Phase 8: the comparison configuration, 512 steps at full width, then
+    an eval render of 192 frames at 1024 px."""
+    from ssar_tpu_torch.generate import optimize as opt
+
+    n_steps = 512
+    torch.cuda.reset_peak_memory_stats()
+    (envs, latents, noise, losses), problem, secs = timed_optimize(audio=track, sr=44100, fps=FPS, n_steps=n_steps,
+                                                                   **COMPARISON)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    T = 40 * FPS
+    shapes = (tuple(envs.shape), tuple(latents.shape), [tuple(n.shape) for n in noise])
+    if shapes != ((T, 37), (T, 18, 512), [(T, s, s) for s in (4, 8, 16, 32, 64)]):
+        fail(f"optimize (comparison): shapes {shapes}")
+    if not all(bool(torch.isfinite(t).all()) for t in (envs, latents, *noise)):
+        fail("optimize (comparison): non-finite output")
+    if len(losses) != n_steps // 16 or not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"optimize (comparison): losses {losses[:2]} ... {losses[-2:]} ({len(losses)} values)")
+    log(f"[optimize] comparison: 40 s @ 44.1 kHz -> envelopes {shapes[0]}, latents {shapes[1]}, {len(noise)} noise maps; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} in {n_steps} steps; features {secs['features']:.3f} s, HiPPO init "
+        f"(N = 128) {secs['hippo']:.3f} s, set-up {secs['prepare']:.3f} s, steps {secs['steps']:.3f} s = "
+        f"{secs['steps'] / n_steps * 1e3:.3f} ms/step; peak memory {peak:.3f} GiB")
+
+    r = profiled_steps(problem, 5)
+    log(f"[optimize] comparison, profiled: device busy {r['device_ms_per_step']:.3f} ms/step in "
+        f"{r['kernels_per_step']:.0f} kernels, {r['device_ms_per_step'] / (secs['steps'] / n_steps * 1e3):.3f} of the "
+        f"unprofiled step ({r['profiled_ms_per_step']:.3f} ms/step under the profiler); top device ms/step {r['top']}")
+
+    sink = FrameSink((1536, 1024))
+    t0 = time.perf_counter()
+    opt._render_eval(None, latents[:192], [n[:192] for n in noise], None, None, FPS, config, device=dev, writer=sink)
+    torch.cuda.synchronize()
+    if len(sink.crcs) != 192 or len(set(sink.crcs)) < 96 or not (16 <= sink.y_range[0] <= sink.y_range[1] <= 235):
+        fail(f"optimize eval render: {len(sink.crcs)} frames, {len(set(sink.crcs))} distinct, luma {sink.y_range}")
+    log(f"[optimize] eval render: 192 frames 1024x1024 in {time.perf_counter() - t0:.3f} s (synthesizer built "
+        f"inside), {len(set(sink.crcs))} distinct frames")
+
+
+def optimize_standalone(dev, track: np.ndarray, n_sync: int) -> dict:
+    """Phase 9: the standalone configuration with the segmentation loss, 8
+    steps; returns the sliding median's launch counts of this run."""
+    from ssar_tpu_torch.generate import optimize as opt
+    from ssar_tpu_torch.ops import median_cuda
+
+    n_steps, n_pred, n_feat = 8, 2 + STANDALONE["n_noise"], len(opt.AFNS)
+    median_cuda.launches = median_cuda.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    (envs, latents, noise, losses), problem, secs = timed_optimize(audio=track, sr=44100, fps=FPS, n_steps=n_steps,
+                                                                   log_steps=1, **STANDALONE)
+    counts = {"sliding_median": median_cuda.launches, "sliding_median_bwd": median_cuda.bwd_launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # set-up: three of the features separate harmonic from percussive (chromagram, tonnetz through its own
+    # chromagram, onsets): one HPSS, two filters each; every feature's segmentation runs two filters, forward
+    # only.  Each step: two filters per prediction, forward and backward.
+    want = {"sliding_median": 3 * 2 + 2 * n_feat + 2 * n_pred * n_steps, "sliding_median_bwd": 2 * n_pred * n_steps}
+    log(f"[optimize] standalone + segmentation loss: launches {counts} (expected {want}: {n_feat} features, "
+        f"{n_pred} predictions, {n_steps} steps)")
+    if counts != want:
+        fail(f"sliding-median launches on the optimize path {counts}, expected {want}")
+    T = 40 * FPS
+    if tuple(envs.shape) != (T, 18) or tuple(latents.shape) != (T, 18, 512) or len(noise) != 6:
+        fail(f"optimize (standalone): shapes {tuple(envs.shape)}, {tuple(latents.shape)}, {len(noise)} noise maps")
+    if len(losses) != n_steps or not all(math.isfinite(v) for v in losses) or not all(
+            bool(torch.isfinite(t).all()) for t in (envs, latents, *noise)):
+        fail(f"optimize (standalone): losses {losses}")
+    log(f"[optimize] standalone: loss {losses[0]:.4f} -> {losses[-1]:.4f} in {n_steps} steps; features "
+        f"{secs['features']:.3f} s, HiPPO init (N = 512, T_pad {T + 256}) {secs['hippo']:.3f} s, set-up "
+        f"{secs['prepare']:.3f} s, steps {secs['steps']:.3f} s = {secs['steps'] / n_steps * 1e3:.1f} ms/step; "
+        f"peak memory {peak:.3f} GiB")
+
+    if len(problem.beats) + 1 != n_sync:
+        fail(f"optimize (standalone): {len(problem.beats) + 1} beat-synchronous frames, kernel check used {n_sync}")
+    loss = problem.loss_fn()
+    (grad,) = torch.autograd.grad(loss, [problem.hippo.c])
+    loss = loss.detach()
+    if not (math.isfinite(float(loss)) and bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0):
+        fail(f"optimize (standalone): loss {float(loss)}, gradient finite={bool(torch.isfinite(grad).all())}")
+    r = profiled_steps(problem, 1)
+    log(f"[optimize] standalone, profiled: device busy {r['device_ms_per_step']:.3f} ms/step in "
+        f"{r['kernels_per_step']:.0f} kernels, {r['device_ms_per_step'] / (secs['steps'] / n_steps * 1e3):.3f} of the "
+        f"unprofiled step, the rest is the host ({r['profiled_ms_per_step']:.1f} ms/step under the profiler); top "
+        f"device ms/step {r['top']}")
+    return counts
+
+
+@contextlib.contextmanager
+def _injected_draws(init_f: np.ndarray, draws: dict):
+    """The optimizer's initial envelopes and noise draws replaced by fixed arrays."""
+    from ssar_tpu_torch.generate import optimize as opt
+
+    saved = opt.initial_envelopes, opt.noise_base_draw
+    opt.initial_envelopes = lambda n, e, generator, device: torch.as_tensor(init_f, device=device)
+    opt.noise_base_draw = lambda T, size, generator, device: torch.as_tensor(draws[size], device=device)
+    try:
+        yield
+    finally:
+        opt.initial_envelopes, opt.noise_base_draw = saved
+
+
+def reference_optimize(dev):
+    """Phase 10: loss and gradient of the HiPPO coefficients for both
+    configurations at a small size (6 s at 12 fps, N = 64, a 32 px mapper's
+    palette given as an array) on the card and on the CPU, from the same
+    initial envelopes, noise draws and palette.  Loss within rtol 1e-3; the
+    gradient within 2e-2 of its largest magnitude: features, cuSOLVER's
+    against LAPACK's eigenvectors and 100 k-means iterations differ in
+    float32 round-off, which eigh's backward magnifies by 1 / (gap between
+    eigenvalues)."""
+    from ssar_tpu_torch.generate import optimize as opt
+    from ssar_tpu_torch.utils.device import full_precision
+
+    fps, sr = 12, 1024 * 12
+    track = synthetic_track(sr, 6.0, section_seconds=1.5)
+    rs = np.random.RandomState(SEED + 7)
+    small = {"comparison": dict(COMPARISON, n_params=64, n_noise=2, ks=(2, 4)),
+             "standalone": dict(STANDALONE, n_params=64, n_noise=2, n_latent_per_group=3, ks=(2, 4))}
+    for tag, cfg in small.items():
+        cfg.pop("log_steps", None)
+        n_pal = cfg["n_latent_split"] * cfg["n_latent_groups"] * cfg["n_latent_per_group"]
+        n_env = n_pal + 2 * cfg["n_noise"]
+        palette = rs.randn(n_pal, 9, 512).astype(np.float32)
+        init_f = rs.rand(6 * fps, n_env).astype(np.float32)
+        draws = {2 ** (i + 2): rs.randn(6 * fps, 2 ** (i + 2), 2 ** (i + 2)).astype(np.float32)
+                 for i in range(cfg["n_noise"])}
+        out = {}
+        for device in (dev, torch.device("cpu")):
+            with _injected_draws(init_f, draws):
+                problem = opt.prepare(track, sr, fps=fps, palette=palette, device=device, **cfg)
+            with full_precision():
+                loss = problem.loss_fn()
+                (grad,) = torch.autograd.grad(loss, [problem.hippo.c])
+            out[device.type] = (float(loss.detach()), grad.cpu(), problem)
+        (l_card, g_card, p_card), (l_cpu, g_cpu, p_cpu) = out["cuda"], out["cpu"]
+        if p_card.beats != p_cpu.beats:
+            fail(f"reference optimize ({tag}): beats on the card {p_card.beats} != CPU {p_cpu.beats}")
+        if "rosa_segmentation" in p_cpu.features and not torch.equal(
+                p_card.features["rosa_segmentation"].cpu(), p_cpu.features["rosa_segmentation"]):
+            fail(f"reference optimize ({tag}): hard segmentation labels differ between the card and the CPU")
+        scale = float(g_cpu.abs().max())
+        err = float((g_card - g_cpu).abs().max())
+        if not (math.isfinite(l_card) and abs(l_card - l_cpu) <= 1e-3 * abs(l_cpu)):
+            fail(f"reference optimize ({tag}): loss on the card {l_card!r}, on the CPU {l_cpu!r}")
+        if not (scale > 0 and err <= 2e-2 * scale):
+            fail(f"reference optimize ({tag}): gradient of c on the card differs by {err:.3g} (largest {scale:.3g})")
+        log(f"[reference] optimize {tag} card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f}; gradient error "
+            f"{err / scale:.3g} of its largest magnitude")
 
 
 def _to(tree, device):

@@ -16,10 +16,10 @@ from ..ops.dct import dct
 from ..ops.quantile import clamp_lower_percentile, clamp_peaks_percentile
 from ..ops.resample import resample
 from ..utils.device import full_precision, resolve_device
-from .beat import onset_strength_multi, plp
+from .beat import onset_strength, onset_strength_multi, plp
 from .convert import power_to_db
 from .pitch import estimate_tuning_device
-from .processing import emphasize, gaussian_filter, high_pass, low_pass
+from .processing import emphasize, gaussian_filter, high_pass, low_pass, normalize
 from .spectral import chroma_cens, frame_signal, hpss, istft, melspectrogram, spectrogram, stft
 
 FEATURE_NAMES = [
@@ -50,14 +50,46 @@ def harmonic_percussive(audio: torch.Tensor, margin: float = 8.0):
     return istft(H, length=audio.shape[0]), istft(P, length=audio.shape[0])
 
 
-def chromagram(audio: torch.Tensor, sr: int, tuning: float | torch.Tensor) -> torch.Tensor:
+def harmonic(audio: torch.Tensor, margin: float = 8.0) -> torch.Tensor:
+    """HPSS harmonic component back in the time domain."""
+    return harmonic_percussive(audio, margin)[0]
+
+
+def percussive(audio: torch.Tensor, margin: float = 8.0) -> torch.Tensor:
+    """HPSS percussive component back in the time domain."""
+    return harmonic_percussive(audio, margin)[1]
+
+
+def onsets(audio: torch.Tensor, sr: int) -> torch.Tensor:
+    """Normalised onset envelope of the percussive component, (T, 1)."""
+    return normalize(onset_strength(percussive(audio), sr))[:, None]
+
+
+def rms(y: torch.Tensor, sr: int, frame_length: int = 2048, hop_length: int = 1024,
+        center: bool = True, pad_mode: str = "reflect") -> torch.Tensor:
+    """Framewise root-mean-square, (T, 1)."""
+    if pad_mode != "reflect":
+        raise ValueError(f"rms supports pad_mode='reflect' only, got {pad_mode!r}")
+    frames = frame_signal(y, frame_length, hop_length, center=center)[:-1]
+    return torch.sqrt((frames.abs() ** 2).mean(dim=1))[:, None]
+
+
+def drop_strength(audio: torch.Tensor, sr: int) -> torch.Tensor:
+    """Long-term RMS with tanh emphasis, (T, 1)."""
+    return emphasize(gaussian_filter(rms(audio, sr), 10), strength=10, percentile=50)[:, None]
+
+
+def chromagram(audio: torch.Tensor, sr: int, tuning: float | torch.Tensor | None = None) -> torch.Tensor:
     """CENS chroma of the re-separated harmonic audio, (T, 12).  `tuning` is a
-    host float or a 0-d device tensor (interpolated CQT basis)."""
-    h, _ = harmonic_percussive(audio)
+    host float, a 0-d device tensor (interpolated CQT basis) or ``None``: the
+    deviation is then estimated on the device from the harmonic signal."""
+    h = harmonic(audio)
+    if tuning is None:
+        tuning = estimate_tuning_device(h, sr)
     return chroma_cens(h, sr, tuning=tuning).T
 
 
-def tonnetz(chroma: torch.Tensor) -> torch.Tensor:
+def _tonnetz_of_chroma(chroma: torch.Tensor) -> torch.Tensor:
     """Tonal centroid features from a (T, 12) chromagram, (T, 6)."""
     chroma = chroma.T
     n = chroma.shape[0]
@@ -68,6 +100,18 @@ def tonnetz(chroma: torch.Tensor) -> torch.Tensor:
     R = np.asarray([1.0, 1.0, 1.0, 1.0, 0.5, 0.5], np.float32)
     phi = torch.as_tensor(R[:, None] * np.cos(np.pi * V), dtype=chroma.dtype, device=chroma.device)
     return (phi @ (chroma / chroma.abs().sum(dim=0))).T
+
+
+def tonnetz(y: torch.Tensor | None, sr: int, chroma: torch.Tensor | None = None,
+            tuning: float | torch.Tensor | None = None) -> torch.Tensor:
+    """Tonal centroid features, (T, 6), of the waveform `y` or of a (T, 12)
+    `chroma` computed beforehand."""
+    return _tonnetz_of_chroma(chromagram(y, sr, tuning=tuning) if chroma is None else chroma)
+
+
+def pulse(audio: torch.Tensor, sr: int) -> torch.Tensor:
+    """(T, 1) predominant local pulse of the percussive component."""
+    return plp(percussive(audio), sr)[:, None]
 
 
 def mfcc(y: torch.Tensor, sr: int, n_mfcc: int = 20) -> torch.Tensor:
@@ -155,7 +199,7 @@ def features_at_rate(audio: torch.Tensor, sr: int, fps: int, clamp: bool = True,
     else:
         tuning = float(tuning)
     chroma = chromagram(audio_harm, sr, tuning)
-    ton = tonnetz(chroma)
+    ton = tonnetz(None, sr, chroma=chroma)
 
     # band onsets from one batched mel pipeline; mid_pass(x) == low_pass(high_pass(x))
     hp = high_pass(audio_perc, sr)
@@ -166,10 +210,10 @@ def features_at_rate(audio: torch.Tensor, sr: int, fps: int, clamp: bool = True,
     both = torch.stack([audio_harm, audio])
     hi = high_pass(both, sr)
     bands = torch.stack([both, low_pass(both, sr), low_pass(hi, sr), hi], dim=1).reshape(8, -1)
-    rms = rms_multi(bands)  # (8, T): harmonic x4, then full audio x4
-    drops = [emphasize(gaussian_filter(rms[i][:, None], 10), strength=10, percentile=50) for i in range(4, 8)]
+    band_rms = rms_multi(bands)  # (8, T): harmonic x4, then full audio x4
+    drops = [emphasize(gaussian_filter(band_rms[i][:, None], 10), strength=10, percentile=50) for i in range(4, 8)]
 
-    single = [flat, *envs, pls, *rms[:4], *drops]
+    single = [flat, *envs, pls, *band_rms[:4], *drops]
     features = torch.cat([mf, chroma, ton, contrast] + [s.reshape(-1, 1) for s in single], dim=1)
     if velocity:  # optional velocity channels: 59 -> 118 dims
         V = torch.diff(gaussian_filter(features, fps), dim=0)
@@ -185,8 +229,8 @@ def audio2features(audio, sr: int, fps: int, clamp: bool = True, smooth: bool = 
 
     Runs on the CUDA device unless ``device`` says otherwise (``"cpu"``);
     raises when no CUDA device is present and none was named.  ``tuning=None``
-    estimates the tuning on the device; a float fixes it.  Only the recursive
-    CQT is ported.
+    estimates the tuning on the device; a float fixes it.  The CQT is the
+    recursive one, as in the reference stack.
     """
     device = resolve_device(device)
     audio = torch.as_tensor(audio, dtype=torch.float32).to(device)

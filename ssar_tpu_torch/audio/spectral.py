@@ -206,12 +206,13 @@ def spline_quantize(chroma: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------- chroma --
 def chroma_cqt(y: torch.Tensor, sr: int, hop_length: int = 1024, fmin: float | None = None,
                threshold: float | None = 0.0, tuning: float | None = None, n_chroma: int = 12,
-               n_octaves: int = 7, bins_per_octave: int = 36, norm: bool = True) -> torch.Tensor:
-    """Recursive CQT -> chroma fold, (12, T).  `tuning` is a host float."""
+               n_octaves: int = 7, bins_per_octave: int = 36, norm: bool = True,
+               method: str = "recursive") -> torch.Tensor:
+    """CQT -> chroma fold, (12, T).  `tuning` is a host float."""
     from .constantq import cqt
 
     C = cqt(y, sr=sr, hop_length=hop_length, fmin=fmin, n_bins=n_octaves * bins_per_octave,
-            bins_per_octave=bins_per_octave, tuning=tuning).abs()
+            bins_per_octave=bins_per_octave, tuning=tuning, method=method).abs()
     fold = _const(cq_to_chroma_matrix(C.shape[0], bins_per_octave=bins_per_octave,
                                       n_chroma=n_chroma, fmin=fmin), C)
     return _threshold_norm(fold @ C, threshold, norm)
@@ -228,7 +229,7 @@ def _threshold_norm(chroma, threshold, norm):
 def chroma_cqt_device_tuned(y: torch.Tensor, sr: int, tuning: torch.Tensor, hop_length: int = 1024,
                             fmin: float | None = None, n_chroma: int = 12, n_octaves: int = 7,
                             bins_per_octave: int = 36, threshold: float | None = 0.0,
-                            norm: bool = True) -> torch.Tensor:
+                            norm: bool = True, method: str = "recursive") -> torch.Tensor:
     """chroma_cqt with the tuning correction applied on the device: the CQT
     runs once on a half-bin grid (2x bins_per_octave) and the tuned bins are
     interpolated from their two fine neighbours, so `tuning` stays a device
@@ -243,7 +244,7 @@ def chroma_cqt_device_tuned(y: torch.Tensor, sr: int, tuning: torch.Tensor, hop_
     n_fine = 2 * n_bins + 2  # one fine-bin guard on each side
     fmin_fine = fmin * 2.0 ** (-1.0 / fine_bpo)
     C_fine = cqt(y, sr=sr, hop_length=hop_length, fmin=fmin_fine, n_bins=n_fine,
-                 bins_per_octave=fine_bpo, tuning=0.0).abs()
+                 bins_per_octave=fine_bpo, tuning=0.0, method=method).abs()
 
     # coarse bin k at tuning tau sits at fine index 2k + 1 + 2*tau
     idx = 2.0 * torch.arange(n_bins, device=y.device, dtype=C_fine.dtype) + 1.0 + 2.0 * tuning.to(C_fine.dtype)
@@ -258,16 +259,18 @@ def chroma_cqt_device_tuned(y: torch.Tensor, sr: int, tuning: torch.Tensor, hop_
 
 def chroma_cens(y: torch.Tensor, sr: int, hop_length: int = 1024, fmin: float | None = None,
                 tuning=None, n_chroma: int = 12, n_octaves: int = 7,
-                bins_per_octave: int = 36, win_len_smooth: int = 41) -> torch.Tensor:
+                bins_per_octave: int = 36, win_len_smooth: int = 41,
+                method: str = "recursive") -> torch.Tensor:
     """Chroma energy-normalised statistics, (12, T).  `tuning` is a host float
     (static basis) or a 0-d tensor (device-interpolated fine-grid path)."""
     if isinstance(tuning, torch.Tensor):
         chroma = chroma_cqt_device_tuned(y, sr, tuning, hop_length=hop_length, fmin=fmin,
                                          n_chroma=n_chroma, n_octaves=n_octaves,
-                                         bins_per_octave=bins_per_octave, norm=False)
+                                         bins_per_octave=bins_per_octave, norm=False, method=method)
     else:
         chroma = chroma_cqt(y, sr, hop_length=hop_length, fmin=fmin, bins_per_octave=bins_per_octave,
-                            tuning=tuning, n_chroma=n_chroma, n_octaves=n_octaves, norm=False)
+                            tuning=tuning, n_chroma=n_chroma, n_octaves=n_octaves, norm=False,
+                            method=method)
     # eps guard: silent frames stay finite rather than 0/0
     chroma = chroma / (chroma.abs().sum(dim=0) + 1e-20)
     chroma_quant = spline_quantize(chroma)

@@ -1,10 +1,15 @@
-"""Median filters along one axis (HPSS's 31-tap windows).
+"""Median filters along one axis (HPSS's 31-tap windows, the segmentation's
+7- and 9-tap ones), differentiable.
 
-Counterpart of ``ssar_tpu/ops/median.py``.  On a CUDA tensor the filter runs
-the hand-written kernel (``median_cuda.py``, ``csrc/sliding_median.cu``) for
-every odd width up to 31 along the last axis or the one before it; a build or
-launch failure raises.  On a CPU tensor it runs the plain version below:
-reflect pad, ``unfold`` into (..., k) windows, ``median``.
+Counterpart of ``ssar_tpu/ops/median.py`` and of the custom VJP in
+``ssar_tpu/ops/median_pallas.py``.  ``median_filter`` always goes through one
+``torch.autograd.Function``.  On a CUDA tensor its forward and its backward
+run the hand-written kernels (``median_cuda.py``, ``csrc/sliding_median.cu``,
+``csrc/sliding_median_bwd.cu``) for every odd width up to 31 along the last
+axis or the one before it; a build or launch failure raises.  On a CPU tensor
+they run the plain versions below.  The gradient rule is one on both devices:
+each output cotangent goes to the first window tap equal to the median, and
+the reflect halo folds back onto the interior.
 """
 from __future__ import annotations
 
@@ -12,31 +17,79 @@ import torch
 import torch.nn.functional as F
 
 
+def _windows(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., T) -> (..., T, k) windows of the torch-'reflect' padded last axis."""
+    p = k // 2
+    shape = x.shape
+    flat = F.pad(x.reshape(-1, 1, shape[-1]), (p, p), mode="reflect")
+    return flat.unfold(-1, k, 1).reshape(*shape, k)
+
+
 def median_filter_plain(x: torch.Tensor, k: int, axis: int = -1) -> torch.Tensor:
     """Reflect-padded sliding median of odd width `k` along `axis` (any device)."""
+    return _windows(x.movedim(axis, -1), k).median(dim=-1).values.movedim(-1, axis)
+
+
+def sliding_median_bwd_plain(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor, k: int,
+                             axis: int = -1) -> torch.Tensor:
+    """Gradient of ``median_filter_plain(x, k, axis)`` for the cotangent `g`
+    (any device): `g[t]` goes to the first tap of window t equal to `out[t]`
+    (none when no tap is, e.g. a NaN), then the padded accumulator's halo is
+    folded back by reflection.  The taps are added in ascending order and the
+    halo after the interior (left, then right), the order the kernel keeps."""
     p = k // 2
-    xt = x.movedim(axis, -1)
-    shape = xt.shape
-    flat = F.pad(xt.reshape(-1, 1, shape[-1]), (p, p), mode="reflect")
-    med = flat.unfold(-1, k, 1).median(dim=-1).values
-    return med.reshape(shape).movedim(-1, axis)
+    x, out, g = (t.movedim(axis, -1) for t in (x, out, g))
+    T = x.shape[-1]
+    eq = _windows(x, k) == out.unsqueeze(-1)
+    sel = eq & (eq.cumsum(dim=-1) == 1)
+    gwin = g.unsqueeze(-1) * sel.to(g.dtype)
+    gxp = g.new_zeros(*x.shape[:-1], T + 2 * p)
+    for i in range(k):
+        gxp[..., i : i + T] += gwin[..., i]
+    gx = gxp[..., p : p + T].clone()
+    if p:  # xp[p - j] == x[j] on the left, xp[2T + p - 2 - j] == x[j] on the right
+        gx[..., 1 : p + 1] += gxp[..., :p].flip(-1)
+        gx[..., T - p - 1 : T - 1] += gxp[..., p + T :].flip(-1)
+    return gx.movedim(-1, axis)
+
+
+class _SlidingMedian(torch.autograd.Function):
+    """Forward and backward: the kernels on a CUDA tensor, the plain versions
+    on a CPU tensor.  `axis` is the last axis or the one before it on CUDA."""
+
+    @staticmethod
+    def forward(ctx, x, k: int, axis: int):
+        if x.is_cuda:
+            from .median_cuda import sliding_median_cuda
+
+            out = sliding_median_cuda(x, k, axis)
+        else:
+            out = median_filter_plain(x, k, axis)
+        ctx.save_for_backward(x, out)
+        ctx.k, ctx.axis = k, axis
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        if x.is_cuda:
+            from .median_cuda import sliding_median_bwd_cuda
+
+            return sliding_median_bwd_cuda(x, out, g, ctx.k, ctx.axis), None, None
+        return sliding_median_bwd_plain(x, out, g, ctx.k, ctx.axis), None, None
 
 
 def median_filter(x: torch.Tensor, k: int, axis: int = -1, mode: str = "reflect") -> torch.Tensor:
     """Sliding-window median of odd width `k` along `axis`, reflect padded
-    (torch 'reflect': the edge sample is not repeated).  Exact."""
+    (torch 'reflect': the edge sample is not repeated).  Exact, and
+    differentiable by the first-equal-tap rule."""
     if k % 2 != 1:
         raise ValueError("median_filter expects an odd window size")
     if mode != "reflect":
         raise ValueError(f"median_filter supports mode='reflect' only, got {mode!r}")
-    axis = axis % x.ndim
-    if x.is_cuda:
-        from .median_cuda import sliding_median_cuda
-
-        if axis >= x.ndim - 2:
-            return sliding_median_cuda(x, k, axis)
-        return sliding_median_cuda(x.movedim(axis, -1), k, -1).movedim(-1, axis)
-    if x.device.type != "cpu":
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"median_filter runs on CUDA or CPU tensors, got {x.device}")
-    return median_filter_plain(x, k, axis)
-
+    axis = axis % x.ndim
+    if axis >= x.ndim - 2:
+        return _SlidingMedian.apply(x, k, axis)
+    return _SlidingMedian.apply(x.movedim(axis, -1), k, x.ndim - 1).movedim(-1, axis)

@@ -6,7 +6,9 @@ Imports nothing of JAX, so it also runs on a machine with a card and no JAX:
 
 Without a CUDA card every test skips (the kernels have no CPU mode); the
 CPU tests hold the plain versions against the JAX package.  The median is
-compared exactly: it selects one of the window's elements.  absdiff at rtol
+compared exactly: it selects one of the window's elements.  Its backward is
+compared exactly too: the kernel gathers each input's cotangents in the order
+the plain version adds them, and two launches give the same bits.  absdiff at rtol
 1e-5 (float32 sums of positive terms in another order) and bit for bit
 between two launches; the S4D Vandermonde kernel and its backward at rtol
 1e-4 with an atol of 1e-5 of the largest magnitude (exp / sin / cos of the
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from ssar_tpu_torch.ops.absdiff import batch_absdiff, batch_absdiff_plain
-from ssar_tpu_torch.ops.median import median_filter, median_filter_plain
+from ssar_tpu_torch.ops.median import median_filter, median_filter_plain, sliding_median_bwd_plain
 from ssar_tpu_torch.ops.vandermonde import s4d_vandermonde, s4d_vandermonde_plain
 
 
@@ -38,6 +40,56 @@ def test_median_cuda_kernel_matches_plain(cuda_device, shape, k):
     for axis in (-1, -2):
         assert torch.equal(median_filter(x, k, axis), median_filter_plain(x, k, axis))
     assert median_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape,k", [((1025, 193), 31), ((2, 130, 300), 31), ((37, 16), 31), ((120, 60), 7),
+                                     ((60, 60), 9), ((3, 5, 40), 1), ((5, 9), 9)])
+def test_median_backward_cuda_kernel_matches_plain(cuda_device, shape, k, ties):
+    """B1's backward on both axes: the kernel equals the plain version bit for
+    bit, on distinct values and on quantised values with a constant row, and a
+    second launch gives the same bits; ``median_filter`` launches it from
+    autograd."""
+    from ssar_tpu_torch.ops import median_cuda
+
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(shape, generator=gen)
+    if ties:
+        x = torch.round(x * 2) / 2
+        x[..., 0, :] = 1.0
+    x = x.to(cuda_device)
+    g = torch.randn(shape, generator=gen).to(cuda_device)
+    for axis in (-1, -2):
+        if x.shape[axis] <= k // 2:
+            continue
+        leaf = x.clone().requires_grad_()
+        out = median_filter(leaf, k, axis)
+        before = median_cuda.bwd_launches
+        (got,) = torch.autograd.grad(out, leaf, g)
+        assert median_cuda.bwd_launches == before + 1
+        want = sliding_median_bwd_plain(x, out.detach(), g, k, axis)
+        assert torch.equal(got, want)
+        assert torch.equal(median_cuda.sliding_median_bwd_cuda(x, out.detach(), g, k, axis % x.ndim), got)
+
+
+@pytest.mark.cuda
+def test_median_backward_cuda_nan_and_errors(cuda_device):
+    from ssar_tpu_torch.ops import median_cuda
+
+    x = torch.randn(6, 50, generator=torch.Generator().manual_seed(2))
+    x[2, 20] = float("nan")
+    x = x.to(cuda_device)
+    out = median_filter(x, 7)
+    g = torch.ones_like(x)
+    got = median_cuda.sliding_median_bwd_cuda(x, out, g, 7, 1)
+    assert torch.equal(got, sliding_median_bwd_plain(x, out, g, 7, 1))
+    with pytest.raises(TypeError):
+        median_cuda.sliding_median_bwd_cuda(x.double(), out.double(), g.double(), 7, 1)
+    with pytest.raises(ValueError):
+        median_cuda.sliding_median_bwd_cuda(x, out[:, :10], g, 7, 1)
+    with pytest.raises(ValueError):
+        median_cuda.sliding_median_bwd_cuda(x.cpu(), out.cpu(), g.cpu(), 7, 1)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """Port ops vs the JAX package's ops, on the CPU, from the same numpy inputs.
 
-Tolerances: the median is exact (it selects an input element); the float32
+Tolerances: the median is exact (it selects an input element), and so is its
+gradient against ``jax.vjp`` of the Pallas kernel (both route each cotangent
+to the first equal tap and add the taps in ascending order); the float32
 filters are held at rtol 1e-5 with an atol of 1e-5 of the output's scale
 (sums taken in another order); quantiles select and interpolate the same
 order statistics and are held at 1e-6.
@@ -28,7 +30,7 @@ from ssar_tpu_torch.ops import iir as t_iir
 from ssar_tpu_torch.ops import quantile as t_q
 from ssar_tpu_torch.ops import resample as t_rs
 from ssar_tpu_torch.ops import upfirdn as t_up
-from ssar_tpu_torch.ops.median import median_filter, median_filter_plain
+from ssar_tpu_torch.ops.median import median_filter, median_filter_plain, sliding_median_bwd_plain
 
 
 def _close(got, want, rtol=1e-5):
@@ -56,6 +58,88 @@ def test_median_matches_pallas_kernel_interpret(rng, k):
         np.testing.assert_array_equal(
             median_filter(torch.as_tensor(x[b]), k, 0).numpy()[:, :16],
             np.asarray(sliding_median_lastaxis(jnp.asarray(x[b].T), k)).T[:, :16])
+
+
+def _median_case(rng, shape, kind):
+    x = rng.randn(*shape).astype(np.float32)
+    if kind == "ties":      # quantised values and a constant row: most windows hold tied taps
+        x = np.round(x * 2) / 2
+        x[0] = 1.0
+    elif kind == "nan":
+        x[1, shape[1] // 2] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("kind", ["distinct", "ties", "nan"])
+@pytest.mark.parametrize("k,shape", [(3, (4, 24)), (7, (6, 40)), (9, (5, 9)), (31, (3, 33)), (31, (2, 16))])
+def test_median_backward_plain_matches_pallas_vjp(rng, k, shape, kind):
+    """The port's first-equal-tap rule against ``jax.vjp`` of the Pallas
+    kernel in interpret mode, through ``median_filter`` along both axes.  On
+    windows holding a NaN the forward value is whatever each network makes of
+    it, so that case compares the gradient away from the NaN's windows only."""
+    x = _median_case(rng, shape, kind)
+    g = rng.randn(*shape).astype(np.float32)
+    out_j, vjp = jax.vjp(lambda a: sliding_median_lastaxis(a, k), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    want = np.asarray(want)
+    for axis, arr, cot in ((1, x, g), (0, x.T.copy(), g.T.copy())):
+        xt = torch.as_tensor(arr).requires_grad_()
+        out = median_filter(xt, k, axis)
+        assert out.grad_fn is not None
+        (got,) = torch.autograd.grad(out, xt, torch.as_tensor(cot))
+        got = got.numpy() if axis == 1 else got.numpy().T
+        if kind == "nan":
+            col = shape[1] // 2
+            far = np.abs(np.arange(shape[1]) - col) > 2 * (k // 2)
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[2:], want[2:])
+            np.testing.assert_array_equal(got[1, far], want[1, far])
+            assert np.isfinite(got[:, np.arange(shape[1]) != col]).all()
+        else:
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(out.detach().numpy() if axis == 1 else out.detach().numpy().T,
+                                          np.asarray(out_j))
+    # the rule itself: every cotangent lands somewhere, once
+    if kind != "nan":
+        np.testing.assert_allclose(want.sum(axis=1), g.sum(axis=1), rtol=1e-4, atol=1e-4)
+
+
+def test_median_backward_matches_sort_gradient_without_ties(rng):
+    """Against the gradient of ``jnp.median`` over the stacked windows (the JAX
+    package's path off the TPU), on distinct values, where every subgradient
+    rule agrees; sums of the same cotangents in another order: atol 1e-5."""
+    x = rng.randn(8, 40).astype(np.float32)
+    w = jnp.arange(40, dtype=jnp.float32)
+    want = jax.grad(lambda a: jnp.sum(jnp.cos(j_median(a, 7, axis=1)) * w))(jnp.asarray(x))
+    xt = torch.as_tensor(x).requires_grad_()
+    (torch.cos(median_filter(xt, 7, 1)) * torch.arange(40.0)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=1e-5)
+    # batched, along the axis before the last, through a moved axis
+    x3 = torch.as_tensor(rng.randn(3, 12, 5, 4).astype(np.float32)).requires_grad_()
+    want3 = jax.grad(lambda a: jnp.sum(j_median(a, 5, axis=1) ** 2))(jnp.asarray(x3.detach().numpy()))
+    (median_filter(x3, 5, 1) ** 2).sum().backward()
+    np.testing.assert_allclose(x3.grad.numpy(), np.asarray(want3), atol=1e-5)
+
+
+def test_median_filter_gradient_is_its_own_rule(rng):
+    """``median_filter`` differentiates by the Function's rule on the CPU path,
+    not ``torch.median``'s: on a constant row the whole cotangent of a window
+    goes to its first tap, and finite differences agree where taps are distinct."""
+    x = torch.ones(1, 12, requires_grad=True)
+    out = median_filter(x, 5)
+    assert type(out.grad_fn).__name__ == "_SlidingMedianBackward"
+    (gx,) = torch.autograd.grad(out, x, torch.ones(1, 12))
+    # window t starts at padded position t: tap 0 is x[t - 2], reflected at the left edge
+    want = np.zeros(12, np.float32)
+    for t in range(12):
+        want[abs(t - 2)] += 1.0
+    np.testing.assert_array_equal(gx.numpy()[0], want)
+    direct = sliding_median_bwd_plain(x.detach(), out.detach(), torch.ones(1, 12), 5)
+    np.testing.assert_array_equal(direct.numpy()[0], want)
+
+    xd = torch.as_tensor(rng.permutation(60).reshape(3, 20).astype(np.float64), dtype=torch.float64).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a: median_filter(a, 7, -1), (xd,), eps=1e-3, atol=1e-6)
+    assert torch.autograd.gradcheck(lambda a: median_filter(a, 5, 0), (xd,), eps=1e-3, atol=1e-6)
 
 
 def test_median_rejects_other_modes():

@@ -117,10 +117,13 @@ def _imported_modules(path: Path):
 def test_port_imports_nothing_of_jax():
     files = sorted((ROOT / "ssar_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(path.relative_to(ROOT)) for path in files}
+    assert {"ssar_tpu_torch/generate/optimize.py", "ssar_tpu_torch/models/hippo.py", "ssar_tpu_torch/audio/segment.py",
+            "ssar_tpu_torch/audio/beat_host.py", "chip_smoke.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "ssar_tpu"), f"{path.relative_to(ROOT)} imports {mod}"
+            assert top not in ("jax", "jaxlib", "flax", "optax", "ssar_tpu"), f"{path.relative_to(ROOT)} imports {mod}"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
