@@ -7,7 +7,9 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: every CUDA source of the port, compiled with nvcc in parallel;
   3. kernel check: the sliding-median kernel against its plain PyTorch
      version (torch.equal) at the serve path's and a 3-minute track's shapes,
-     batched and awkward shapes, and its time beside the plain version's;
+     the optimize path's, batched and awkward shapes, lines no longer than
+     k // 2 and inputs holding NaNs (NaNs in the same places), and its time
+     and device time beside the plain version's and its bound;
   3b. kernel check: absdiff (B2) and the S4D Vandermonde forward and backward
      (B3) against their plain versions at the train path's shapes, a 3-minute
      track's and ragged ones, with their times, plain times and bounds;
@@ -127,23 +129,54 @@ def device_ms_per_call(fn, calls: int = 20) -> float:
     return device_ms(prof) / calls
 
 
-def median_bound_ms(numel: int, k: int) -> tuple[float, str]:
-    """Least time for one sliding median: each input read and output written
-    once (fp32), and the odd-even network's k(k-1)/2 compare-exchanges of two
-    fp32 min/max each per output, at the published peaks."""
-    t_bytes = 2 * 4 * numel / HBM_BYTES_PER_S * 1e3
-    t_ops = numel * k * (k - 1) / FP32_PEAK_OPS * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def median_design_ops(k: int) -> float:
+    """fp32 min/max operations an output of csrc/sliding_median.cu's design: a
+    thread sorts the k - P + 1 values its P windows share with Batcher's
+    odd-even merge sort, of which only what the P middle ranks depend on is
+    live (counted here by walking the network backwards), then per output
+    sorts P - 1 extras and selects with P - 1 max and P - 1 min."""
+    P = 4 if k >= 7 else (2 if k >= 3 else 1)
+
+    def batcher(n):
+        net, p = [], 1
+        while p < n:
+            q = p
+            while q >= 1:
+                for j in range(q % p, n - q, 2 * q):
+                    for i in range(min(q, n - j - q)):
+                        if (i + j) // (2 * p) == (i + j + q) // (2 * p):
+                            net.append((i + j, i + j + q))
+                q //= 2
+            p *= 2
+        return net
+
+    C, H = k - P + 1, k // 2
+    live, ops = set(range(H - P + 1, H + 1)), 0
+    for a, b in reversed(batcher(C)):
+        used = (a in live) + (b in live)   # a min for wire a, a max for wire b
+        if used:
+            ops += used
+            live |= {a, b}
+    return ops / P + 2 * len(batcher(P - 1)) + 2 * (P - 1)
+
+
+def median_bound_ms(numel: int, k: int) -> tuple[float, str, float]:
+    """Least time for one sliding median: the function moves each input and
+    each output once (8 B an fp32 element at 3.35 TB/s), whatever the
+    algorithm.  Also returns the operations time of the design that is used:
+    its min/max an output at 128 a clock an SM (min/max are not FMAs: the
+    67 TFLOP/s peak counts two operations an instruction)."""
+    return 2 * 4 * numel / HBM_BYTES_PER_S * 1e3, "bytes", numel * median_design_ops(k) / FP32_INSTR_PER_S * 1e3
 
 
 def median_bwd_bound_ms(numel: int, k: int) -> tuple[float, str, float]:
     """Least time for one sliding-median backward: x, out and g read once and
-    gx written once (16 B an element at 3.35 TB/s), against at most k compares
-    for the first-equal-tap search and k compare-and-adds for the gather (3k
-    fp32 operations an element at 67 TFLOP/s).  Also returns the operations
-    time, the smaller of the two at every k <= 31."""
+    gx written once (16 B an element at 3.35 TB/s), against k compares and k
+    selects for the first-equal-tap search and k compares and k adds for the
+    gather (4k fp32 instructions an element at 128 a clock an SM).  Also
+    returns the operations time."""
     t_bytes = 4 * 4 * numel / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * k * numel / FP32_PEAK_OPS * 1e3
+    t_ops = 4 * k * numel / FP32_INSTR_PER_S * 1e3
     return (t_ops, "operations", t_ops) if t_ops >= t_bytes else (t_bytes, "bytes", t_ops)
 
 
@@ -232,7 +265,6 @@ def main():
     from ssar_tpu_torch.generate.audio2video import react, render_reaction
     from ssar_tpu_torch.models.reactor import LatentNoiseReactor
     from ssar_tpu_torch.ops import _build, median_cuda
-    from ssar_tpu_torch.ops.median import median_filter, median_filter_plain
     from ssar_tpu_torch.utils.device import full_precision
 
     dev = torch.device("cuda")
@@ -252,36 +284,10 @@ def main():
         lines = [ln.strip() for ln in info["ptxas"].splitlines() if "registers" in ln or "spill" in ln]
         log(f"[build] {name}: nvcc {info['seconds']:.2f} s; ptxas: {lines[:2]}")
 
-    # ---------------------------------------------------------------- 3 --
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    checks = [((1025, 193), 31), ((1025, 192), 31), ((1025, 4320), 31), ((4, 1025, 4320), 31),
-              ((1000, 100), 31), ((37, 16), 31), ((3, 53, 77), 7), ((53, 77), 9), ((130, 70), 9)]
-    max_err, rows = 0.0, []
-    for shape, k in checks:
-        x = torch.rand(shape, generator=g, device=dev)
-        for axis in (-1, -2):
-            if x.shape[axis] <= k // 2:
-                continue
-            got = median_filter(x, k, axis)
-            want = median_filter_plain(x, k, axis)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"sliding median differs from the plain version at {shape}, k={k}, axis={axis}")
-            max_err = max(max_err, float((got - want).abs().max()))
-            if k == 31 and shape in ((1025, 193), (1025, 192), (1025, 4320), (4, 1025, 4320)):
-                ms = cuda_ms(lambda: median_filter(x, k, axis))
-                plain = cuda_ms(lambda: median_filter_plain(x, k, axis), runs=20)
-                dev_ms = device_ms_per_call(lambda: median_filter(x, k, axis))
-                bound, by = median_bound_ms(x.numel(), k)
-                rows.append({"shape": list(shape), "axis": axis, "ms": ms, "plain_ms": plain,
-                             "bound_ms": bound, "bound_by": by})
-                log(f"[kernel] sliding_median {shape} k={k} axis={axis}: {ms:.4f} ms, device {dev_ms:.4f} ms "
-                    f"(plain {plain:.3f} ms, bound {bound:.4f} ms by {by})")
-    log(f"[kernel] sliding_median bit-exact on {len(checks)} shapes x both axes")
-
-    # --------------------------------------------------------------- 3c --
+    # ----------------------------------------------------------- 3, 3c --
     track40 = synthetic_track(44100, 40.0, section_seconds=8.0)
     n_sync = beat_sync_frames(track40, 44100, dev)
+    rows, max_err = check_median(dev, n_sync)
     bwd_rows, bwd_err = check_median_bwd(dev, n_sync)
 
     # --------------------------------------------------------------- 3b --
@@ -389,7 +395,7 @@ def main():
     opt_counts = optimize_standalone(dev, track40, n_sync)
     reference_optimize(dev)
 
-    main_row = [r for r in rows if r["shape"] == [1025, 193]]
+    main_row = [r for r in rows if r["shape"] == [1025, 193]]  # both axes: one HPSS
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
     ad_path = [r for r in absdiff_rows if r["path"]]
     # Vandermonde: one launch at the train path's shape, (104, 32, 192) (hidden 32, fixed decoder)
@@ -446,12 +452,84 @@ def beat_sync_frames(track: np.ndarray, sr: int, dev) -> int:
     return len([b for b in beats if 0 < b < audio.shape[0] // 1024]) + 1
 
 
+# lines no longer than k // 2 along one axis or both: the padding keeps reflecting
+SHORT_LINES = [((40, 3), 7), ((5, 9), 31), ((2, 6, 1), 9)]
+
+
+def median_case(shape, kind: str, gen, dev) -> torch.Tensor:
+    """Distinct values, quantised values with a constant row ("ties"), or one
+    value in 300 a NaN ("nan")."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    if kind == "ties":
+        x = torch.round(x * 2) / 2
+        x[..., 0, :] = 1.0
+    elif kind == "nan":
+        flat = x.view(-1)
+        flat[torch.randperm(flat.numel(), generator=gen, device=dev)[: max(1, flat.numel() // 300)]] = float("nan")
+    return x
+
+
+def equal_with_nans(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaNs in the same places and every other value equal."""
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+
+
+def check_median(dev, n_sync: int):
+    """B1's forward against its plain version, exactly (a selection): the
+    serve path's (1025, 193) and a 3-minute track's (1025, 4320) on both
+    axes, the optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and
+    awkward shapes, short lines, and on each an input holding NaNs (a window
+    with a NaN gives NaN in both)."""
+    from ssar_tpu_torch.ops.median import median_filter, median_filter_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n = n_sync
+    path = [((2 * n, n), 7), ((n, n), 9)]
+    timed = [((1025, 193), 31), ((1025, 192), 31), ((1025, 4320), 31), ((4, 1025, 4320), 31)] + path
+    checks = timed + [((1000, 100), 31), ((37, 16), 31), ((3, 53, 77), 7), ((53, 77), 9), ((130, 70), 9)] + SHORT_LINES
+    max_err, rows, n_nan = 0.0, [], 0
+    for shape, k in checks:
+        for kind in ("distinct", "nan"):
+            if kind == "nan" and math.prod(shape) > 5e6:
+                continue
+            x = median_case(shape, kind, g, dev)
+            for axis in (-1, -2):
+                got = median_filter(x, k, axis)
+                want = median_filter_plain(x, k, axis)
+                torch.cuda.synchronize()
+                if not (equal_with_nans(got, want) if kind == "nan" else torch.equal(got, want)):
+                    fail(f"sliding median differs from the plain version at {shape}, k={k}, axis={axis}, {kind} input")
+                if kind == "nan":
+                    n_nan += int(got.isnan().sum())
+                    continue
+                max_err = max(max_err, float((got - want).abs().max()))
+                if (shape, k) not in timed or ((shape, k) in path and axis != -1):
+                    continue
+                ms = cuda_ms(lambda: median_filter(x, k, axis))
+                plain = cuda_ms(lambda: median_filter_plain(x, k, axis), runs=20)
+                dev_ms = device_ms_per_call(lambda: median_filter(x, k, axis))
+                bound, by, ops_ms = median_bound_ms(x.numel(), k)
+                rows.append({"shape": list(shape), "k": k, "axis": axis, "ms": ms, "dev_ms": dev_ms, "plain_ms": plain,
+                             "bound_ms": bound, "bound_by": by})
+                log(f"[kernel] sliding_median {shape} k={k} axis={axis}: {ms:.4f} ms, device {dev_ms:.4f} ms "
+                    f"(plain {plain:.3f} ms, bound {bound:.5f} ms by {by}; the design's "
+                    f"{median_design_ops(k):.1f} min/max an output take {ops_ms:.5f} ms)")
+                if dev_ms < bound:
+                    fail(f"sliding median's device time {dev_ms} ms at {shape} reads below its bound {bound} ms")
+    if n_nan == 0:
+        fail("the NaN inputs gave no NaN output")
+    log(f"[kernel] sliding_median bit-exact on {len(checks)} shapes x both axes, {len(SHORT_LINES)} of them with lines "
+        f"no longer than k // 2; NaNs in the same places as the plain version's ({n_nan} NaN outputs)")
+    return rows, max_err
+
+
 def check_median_bwd(dev, n_sync: int):
     """B1's backward against its plain version, bit for bit (the kernel
     gathers in the order the plain version adds): HPSS shapes on both axes,
     the optimize path's (2n, n) k = 7 and (n, n) k = 9 at the 40 s track's n,
-    batched and ragged shapes; on distinct values and on quantised values
-    with a constant row; two launches equal."""
+    batched and ragged shapes, short lines; on distinct values, on quantised
+    values with a constant row and on inputs holding NaNs (their windows
+    route nothing); two launches equal."""
     from ssar_tpu_torch.ops import median_cuda
     from ssar_tpu_torch.ops.median import median_filter, sliding_median_bwd_plain
 
@@ -460,18 +538,14 @@ def check_median_bwd(dev, n_sync: int):
     path = [((2 * n, n), 7), ((n, n), 9)]
     timed = [((1025, 193), 31), ((1025, 4320), 31)] + path
     checks = timed + [((4, 1025, 300), 31), ((1000, 100), 31), ((37, 16), 31), ((3, 53, 77), 7), ((130, 70), 9),
-                      ((5, 9), 9), ((3, 5, 40), 1)]
+                      ((5, 9), 9), ((3, 5, 40), 1)] + SHORT_LINES
     rows, max_err = [], 0.0
     for shape, k in checks:
-        for ties in (False, True):
-            x = torch.randn(shape, generator=g, device=dev)
-            if ties:
-                x = torch.round(x * 2) / 2
-                x[..., 0, :] = 1.0
+        for kind in ("distinct", "ties", "nan"):
+            ties = kind != "distinct"   # only distinct inputs are timed
+            x = median_case(shape, kind, g, dev)
             cot = torch.randn(shape, generator=g, device=dev)
             for axis in (-1, -2):
-                if x.shape[axis] <= k // 2:
-                    continue
                 leaf = x.clone().requires_grad_()
                 out = median_filter(leaf, k, axis)
                 before = median_cuda.bwd_launches
@@ -484,7 +558,7 @@ def check_median_bwd(dev, n_sync: int):
                 torch.cuda.synchronize()
                 if not torch.equal(got, want):
                     fail(f"sliding median backward differs from the plain version at {shape}, k={k}, axis={axis}, "
-                         f"ties={ties}: max abs error {float((got - want).abs().max()):.3g}")
+                         f"{kind} input: max abs error {float((got - want).abs().max()):.3g}")
                 if not torch.equal(got, again):
                     fail(f"sliding median backward: two launches differ at {shape}, k={k}, axis={axis}")
                 max_err = max(max_err, float((got - want).abs().max()))
@@ -497,11 +571,13 @@ def check_median_bwd(dev, n_sync: int):
                        "plain_dev_ms": device_ms_per_call(plain, calls=5)}
                 row["bound_ms"], row["bound_by"], ops_ms = median_bwd_bound_ms(x.numel(), k)
                 rows.append(row)
+                if row["dev_ms"] < row["bound_ms"]:
+                    fail(f"sliding median backward's device time {row['dev_ms']} ms at {shape} reads below its bound")
                 log(f"[kernel] sliding_median_bwd {shape} k={k} axis={axis}: {row['ms']:.4f} ms, device "
                     f"{row['dev_ms']:.4f} ms (plain {row['plain_ms']:.4f}, device {row['plain_dev_ms']:.4f}; bound "
                     f"{row['bound_ms']:.5f} ms by {row['bound_by']}, operations {ops_ms:.5f} ms)")
-    log(f"[kernel] sliding_median_bwd bit-exact on {len(checks)} shapes x both axes x (distinct, tied) inputs; "
-        f"two launches bit-identical; n_sync {n}")
+    log(f"[kernel] sliding_median_bwd bit-exact on {len(checks)} shapes x both axes x (distinct, tied, NaN) inputs, "
+        f"{len(SHORT_LINES)} of them with lines no longer than k // 2; two launches bit-identical; n_sync {n}")
     return rows, max_err
 
 

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<hash>.so`` under the checkout (``build/`` is
 git-ignored) and loaded with ``ctypes``.  The sources expose plain C entry
-points, so no PyTorch header is compiled and a build takes seconds.  The
-file name carries a hash of the source and flags, so an edited source is
-rebuilt and a stale library is never loaded.
+points, so no PyTorch header is compiled and a build takes seconds to a
+minute.  The file name carries a hash of the source, the directory's headers
+and the flags, so an edited source is rebuilt and a stale library is never
+loaded.
 """
 from __future__ import annotations
 
@@ -35,8 +36,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh")), *sorted(CSRC.glob("*.h"))]  # headers it may include
+    content = b"".join(p.read_bytes() for p in sources) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(content).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -14,19 +14,33 @@ the reflect halo folds back onto the interior.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from .median_cuda import sliding_median_bwd_cuda, sliding_median_cuda
+
+
+def reflect_indices(L: int, p: int, device=None) -> torch.Tensor:
+    """The line positions that the reflect-padded positions -p .. L + p - 1
+    mirror: a triangle wave of period 2(L - 1), the edge sample not repeated,
+    which keeps reflecting when the pad is longer than the line (as numpy's
+    and jax's 'reflect' do; ``F.pad`` refuses p >= L).  L = 1 repeats the
+    sample."""
+    q = torch.arange(-p, L + p, device=device)
+    if L == 1:
+        return torch.zeros_like(q)
+    m = 2 * (L - 1)
+    r = q.remainder(m)
+    return torch.where(r < L, r, m - r)
 
 
 def _windows(x: torch.Tensor, k: int) -> torch.Tensor:
-    """(..., T) -> (..., T, k) windows of the torch-'reflect' padded last axis."""
-    p = k // 2
-    shape = x.shape
-    flat = F.pad(x.reshape(-1, 1, shape[-1]), (p, p), mode="reflect")
-    return flat.unfold(-1, k, 1).reshape(*shape, k)
+    """(..., T) -> (..., T, k) windows of the reflect-padded last axis."""
+    padded = x.index_select(-1, reflect_indices(x.shape[-1], k // 2, x.device))
+    return padded.unfold(-1, k, 1)
 
 
 def median_filter_plain(x: torch.Tensor, k: int, axis: int = -1) -> torch.Tensor:
-    """Reflect-padded sliding median of odd width `k` along `axis` (any device)."""
+    """Reflect-padded sliding median of odd width `k` along `axis` (any
+    device, any length of the axis).  A window holding a NaN gives NaN."""
     return _windows(x.movedim(axis, -1), k).median(dim=-1).values.movedim(-1, axis)
 
 
@@ -35,8 +49,10 @@ def sliding_median_bwd_plain(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor
     """Gradient of ``median_filter_plain(x, k, axis)`` for the cotangent `g`
     (any device): `g[t]` goes to the first tap of window t equal to `out[t]`
     (none when no tap is, e.g. a NaN), then the padded accumulator's halo is
-    folded back by reflection.  The taps are added in ascending order and the
-    halo after the interior (left, then right), the order the kernel keeps."""
+    folded back by reflection.  The order of the adds is the kernel's: the
+    taps ascending, then the halo after the interior, first the positions left
+    of the line moving outward, then those right of it moving outward.  On a
+    line longer than k // 2 each side folds in one flipped slice."""
     p = k // 2
     x, out, g = (t.movedim(axis, -1) for t in (x, out, g))
     T = x.shape[-1]
@@ -47,9 +63,13 @@ def sliding_median_bwd_plain(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor
     for i in range(k):
         gxp[..., i : i + T] += gwin[..., i]
     gx = gxp[..., p : p + T].clone()
-    if p:  # xp[p - j] == x[j] on the left, xp[2T + p - 2 - j] == x[j] on the right
+    if T > p > 0:  # xp[p - j] == x[j] on the left, xp[2T + p - 2 - j] == x[j] on the right
         gx[..., 1 : p + 1] += gxp[..., :p].flip(-1)
         gx[..., T - p - 1 : T - 1] += gxp[..., p + T :].flip(-1)
+    elif p:  # the halo wraps around the line: one padded position at a time
+        mirror = reflect_indices(T, p).tolist()
+        for q in [*range(p - 1, -1, -1), *range(p + T, T + 2 * p)]:
+            gx[..., mirror[q]] += gxp[..., q]
     return gx.movedim(-1, axis)
 
 
@@ -60,8 +80,6 @@ class _SlidingMedian(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, k: int, axis: int):
         if x.is_cuda:
-            from .median_cuda import sliding_median_cuda
-
             out = sliding_median_cuda(x, k, axis)
         else:
             out = median_filter_plain(x, k, axis)
@@ -73,16 +91,15 @@ class _SlidingMedian(torch.autograd.Function):
     def backward(ctx, g):
         x, out = ctx.saved_tensors
         if x.is_cuda:
-            from .median_cuda import sliding_median_bwd_cuda
-
             return sliding_median_bwd_cuda(x, out, g, ctx.k, ctx.axis), None, None
         return sliding_median_bwd_plain(x, out, g, ctx.k, ctx.axis), None, None
 
 
 def median_filter(x: torch.Tensor, k: int, axis: int = -1, mode: str = "reflect") -> torch.Tensor:
     """Sliding-window median of odd width `k` along `axis`, reflect padded
-    (torch 'reflect': the edge sample is not repeated).  Exact, and
-    differentiable by the first-equal-tap rule."""
+    (the edge sample is not repeated; an axis shorter than the pad keeps
+    reflecting, see ``reflect_indices``).  Exact, a window holding a NaN gives
+    NaN, and differentiable by the first-equal-tap rule."""
     if k % 2 != 1:
         raise ValueError("median_filter expects an odd window size")
     if mode != "reflect":

@@ -7,6 +7,13 @@ Replace the TPU kernel ``ssar_tpu/ops/median_pallas.py``
 allocates the output, launches on PyTorch's current stream and raises if the
 launch is refused.  ``launches`` and ``bwd_launches`` count the launches made
 through them.
+
+The optimizer calls these thousands of times on matrices of a few thousand
+elements, where the host's time in the wrapper is several times the kernel's,
+so a call does only what it needs: the ctypes functions are resolved once, a
+contiguous tensor is not passed through ``.contiguous()``, the stream is read
+as a raw handle, and the device guard is entered only for a tensor that is not
+on the current device.
 """
 from __future__ import annotations
 
@@ -17,37 +24,42 @@ import torch
 
 from . import _build
 
-MAX_K = 31  # widths instantiated in the source: every odd k in [1, 31]
+MAX_K = 31  # widths instantiated in the sources: every odd k in [1, 31]
 
 launches = 0
 bwd_launches = 0
 
-
-def _fn():
-    lib = _build.load("sliding_median")
-    fn = lib.ssar_sliding_median_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_LAYOUT_ARGS = [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 4
+_fwd_fn = None
+_bwd_fn = None
+_raw_stream = None  # device index -> the current stream's handle
 
 
-def _bwd_fn():
-    lib = _build.load("sliding_median_bwd")
-    fn = lib.ssar_sliding_median_bwd_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int] \
-            + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def _resolve():
+    """Build (at first use) and bind both entry points."""
+    global _fwd_fn, _bwd_fn, _raw_stream
+    fwd = _build.load("sliding_median").ssar_sliding_median_f32
+    fwd.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + _LAYOUT_ARGS + [ctypes.c_void_p]
+    bwd = _build.load("sliding_median_bwd").ssar_sliding_median_bwd_f32
+    bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + _LAYOUT_ARGS + [ctypes.c_void_p]
+    fwd.restype = bwd.restype = ctypes.c_int
+    # the raw handle without a Stream object, where this PyTorch has the call
+    _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+        or (lambda index: torch.cuda.current_stream(index).cuda_stream)
+    _fwd_fn, _bwd_fn = fwd, bwd
 
 
-def _line_layout(x: torch.Tensor, k: int, axis: int, who: str):
-    """Checks shared by both kernels; returns (n_rows, L, rows_per_batch,
-    batch_stride, row_stride, pos_stride) of the contiguous tensor's lines
-    along ``axis`` (the last axis or the one before it)."""
+def line_layout(shape, axis: int):
+    """(n_lines, L, lines_per_batch, batch_stride, line_stride, pos_stride),
+    in elements, of a contiguous tensor's lines along ``axis``: its last axis
+    (``len(shape) - 1``) or the one before it.  Leading dimensions are a batch."""
+    nb, R, T = (math.prod(shape[:-2]), shape[-2], shape[-1]) if len(shape) >= 2 else (1, 1, shape[0])
+    if axis == len(shape) - 1:  # one line per (batch, row)
+        return nb * R, T, R, R * T, T, 1
+    return nb * T, R, T, R * T, 1, T  # one line per (batch, column)
+
+
+def _check(x: torch.Tensor, k: int, axis: int, who: str) -> int:
     if not x.is_cuda:
         raise ValueError(f"{who} takes a CUDA tensor")
     if x.dtype != torch.float32:
@@ -59,26 +71,31 @@ def _line_layout(x: torch.Tensor, k: int, axis: int, who: str):
     axis = axis % x.ndim
     if axis < x.ndim - 2:
         raise ValueError(f"{who} filters the last axis or the one before it")
-    L = x.shape[axis]
-    if k // 2 >= L:
-        raise ValueError(f"reflect padding by {k // 2} needs more than {k // 2} elements along the axis, got {L}")
-    nb, R, T = (math.prod(x.shape[:-2]), *x.shape[-2:]) if x.ndim >= 2 else (1, 1, x.shape[0])
-    if axis == x.ndim - 1:  # lines along the last axis: one per (batch, row)
-        return nb * R, L, R, R * T, T, 1
-    return nb * T, L, T, R * T, 1, T  # lines along the axis before it: one per (batch, column)
+    return axis
+
+
+def _launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on the device's current stream."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, _raw_stream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, _raw_stream(device.index))
 
 
 def sliding_median_cuda(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
     """Median of the odd k-wide window along ``axis`` (the last or the one
-    before it) of a CUDA float32 tensor, torch-'reflect' padded.  Leading
-    dimensions are a batch.  The axis before the last is filtered in place
-    of its strides (no transpose copy)."""
+    before it) of a CUDA float32 tensor, reflect padded (an axis of any
+    length).  A window holding a NaN gives NaN.  Leading dimensions are a
+    batch.  The axis before the last is filtered in place of its strides (no
+    transpose copy)."""
     global launches
-    layout = _line_layout(x, k, axis, "sliding_median_cuda")
-    x = x.contiguous()
+    axis = _check(x, k, axis, "sliding_median_cuda")
+    if _fwd_fn is None:
+        _resolve()
+    if not x.is_contiguous():
+        x = x.contiguous()
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _fn()(x.data_ptr(), y.data_ptr(), k, *layout, torch.cuda.current_stream().cuda_stream)
+    err = _launch(_fwd_fn, x.device, x.data_ptr(), y.data_ptr(), k, *line_layout(x.shape, axis))
     if err != 0:
         raise RuntimeError(f"sliding_median kernel launch failed: cudaError {err}")
     launches += 1
@@ -90,16 +107,17 @@ def sliding_median_bwd_cuda(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     cotangent ``g``: each ``g[t]`` goes to the first window tap equal to
     ``out[t]``, the reflect halo folded back.  ``out`` is the forward's result."""
     global bwd_launches
-    layout = _line_layout(x, k, axis, "sliding_median_bwd_cuda")
-    for name, t in (("out", out), ("g", g)):
-        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
-            raise ValueError(f"sliding_median_bwd_cuda: {name} {tuple(t.shape)} {t.dtype} {t.device} does not "
-                             f"match x {tuple(x.shape)} {x.dtype} {x.device}")
-    x, out, g = x.contiguous(), out.contiguous(), g.contiguous()
+    axis = _check(x, k, axis, "sliding_median_bwd_cuda")
+    if out.shape != x.shape or g.shape != x.shape or out.dtype != x.dtype or g.dtype != x.dtype \
+            or out.device != x.device or g.device != x.device:
+        raise ValueError(f"sliding_median_bwd_cuda: out {tuple(out.shape)} {out.dtype} {out.device} and g "
+                         f"{tuple(g.shape)} {g.dtype} {g.device} must match x {tuple(x.shape)} {x.dtype} {x.device}")
+    if _bwd_fn is None:
+        _resolve()
+    x, out, g = (t if t.is_contiguous() else t.contiguous() for t in (x, out, g))
     gx = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = _bwd_fn()(x.data_ptr(), out.data_ptr(), g.data_ptr(), gx.data_ptr(), k, *layout,
-                        torch.cuda.current_stream().cuda_stream)
+    err = _launch(_bwd_fn, x.device, x.data_ptr(), out.data_ptr(), g.data_ptr(), gx.data_ptr(), k,
+                  *line_layout(x.shape, axis))
     if err != 0:
         raise RuntimeError(f"sliding_median_bwd kernel launch failed: cudaError {err}")
     bwd_launches += 1

@@ -6,7 +6,9 @@ Imports nothing of JAX, so it also runs on a machine with a card and no JAX:
 
 Without a CUDA card every test skips (the kernels have no CPU mode); the
 CPU tests hold the plain versions against the JAX package.  The median is
-compared exactly: it selects one of the window's elements.  Its backward is
+compared exactly: it selects one of the window's elements, a window holding a
+NaN gives NaN in both (NaNs in the same places), and a line no longer than
+k // 2 keeps reflecting in both.  Its backward is
 compared exactly too: the kernel gathers each input's cotangents in the order
 the plain version adds them, and two launches give the same bits.  absdiff at rtol
 1e-5 (float32 sums of positive terms in another order) and bit for bit
@@ -61,8 +63,6 @@ def test_median_backward_cuda_kernel_matches_plain(cuda_device, shape, k, ties):
     x = x.to(cuda_device)
     g = torch.randn(shape, generator=gen).to(cuda_device)
     for axis in (-1, -2):
-        if x.shape[axis] <= k // 2:
-            continue
         leaf = x.clone().requires_grad_()
         out = median_filter(leaf, k, axis)
         before = median_cuda.bwd_launches
@@ -73,6 +73,24 @@ def test_median_backward_cuda_kernel_matches_plain(cuda_device, shape, k, ties):
         assert torch.equal(median_cuda.sliding_median_bwd_cuda(x, out.detach(), g, k, axis % x.ndim), got)
 
 
+def _equal_with_nans(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaNs in the same places and every other value equal."""
+    return torch.equal(got.isnan(), want.isnan()) and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+
+
+def _check_both_directions(x, g, k):
+    """Forward and backward kernels against the plain versions on both axes;
+    the backward twice."""
+    from ssar_tpu_torch.ops import median_cuda
+
+    for axis in (-1, -2):
+        out = median_filter(x, k, axis)
+        assert _equal_with_nans(out, median_filter_plain(x, k, axis))
+        got = median_cuda.sliding_median_bwd_cuda(x, out, g, k, axis % x.ndim)
+        assert torch.equal(got, sliding_median_bwd_plain(x, out, g, k, axis))
+        assert torch.equal(got, median_cuda.sliding_median_bwd_cuda(x, out, g, k, axis % x.ndim))
+
+
 @pytest.mark.cuda
 def test_median_backward_cuda_nan_and_errors(cuda_device):
     from ssar_tpu_torch.ops import median_cuda
@@ -81,6 +99,7 @@ def test_median_backward_cuda_nan_and_errors(cuda_device):
     x[2, 20] = float("nan")
     x = x.to(cuda_device)
     out = median_filter(x, 7)
+    assert bool(out[2, 17:24].isnan().all()) and int(out.isnan().sum()) == 7
     g = torch.ones_like(x)
     got = median_cuda.sliding_median_bwd_cuda(x, out, g, 7, 1)
     assert torch.equal(got, sliding_median_bwd_plain(x, out, g, 7, 1))
@@ -93,13 +112,51 @@ def test_median_backward_cuda_nan_and_errors(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((6, 50), 7), ((1025, 193), 31), ((3, 40, 70), 9), ((2, 3), 7), ((70, 5), 31)])
+def test_median_cuda_window_with_nan(cuda_device, shape, k):
+    """A window holding a NaN gives NaN (the kernel tests for it: min/max drop
+    a NaN operand), and the backward routes nothing from it."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(shape, generator=gen)
+    flat = x.view(-1)
+    flat[torch.randperm(flat.numel(), generator=gen)[: max(1, flat.numel() // 300)]] = float("nan")
+    g = torch.randn(shape, generator=gen).to(cuda_device)
+    x = x.to(cuda_device)
+    assert bool(median_filter(x, k, -1).isnan().any())
+    _check_both_directions(x, g, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape,k", [((40, 3), 7), ((5, 9), 31), ((2, 6, 1), 9), ((1, 1), 31), ((3, 4), 9),
+                                     ((2, 15), 31), ((4, 10), 31)])
+def test_median_cuda_short_lines(cuda_device, shape, k, ties):
+    """Lines no longer than k // 2 (on one axis or both): the padding keeps
+    reflecting, forward and backward, as the plain versions do."""
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(shape, generator=gen)
+    if ties:
+        x = torch.round(x * 2) / 2
+    _check_both_directions(x.to(cuda_device), torch.randn(shape, generator=gen).to(cuda_device), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", list(range(1, 32, 2)))
+def test_median_cuda_every_width(cuda_device, k):
+    """Every instantiated width at a ragged shape, both axes, both directions."""
+    gen = torch.Generator().manual_seed(k)
+    x = torch.randn(67, 131, generator=gen).to(cuda_device)
+    _check_both_directions(x, torch.randn(67, 131, generator=gen).to(cuda_device), k)
+
+
+@pytest.mark.cuda
 def test_median_cuda_other_axis_and_errors(cuda_device):
     x = torch.rand(6, 5, 40, device=cuda_device)
     assert torch.equal(median_filter(x, 3, 0), median_filter_plain(x, 3, 0))
     with pytest.raises(ValueError):
         median_filter(torch.rand(4, 40, device=cuda_device), 33)   # no instantiation above 31
-    with pytest.raises(ValueError):
-        median_filter(torch.rand(4, 10, device=cuda_device), 31)   # reflect pad needs > k // 2 samples
+    short = torch.rand(4, 10, device=cuda_device)                  # a pad of 15 on lines of 10 keeps reflecting
+    assert torch.equal(median_filter(short, 31), median_filter_plain(short, 31))
     with pytest.raises(TypeError):
         median_filter(torch.rand(4, 40, device=cuda_device, dtype=torch.float64), 7)
 

@@ -74,9 +74,10 @@ def _median_case(rng, shape, kind):
 @pytest.mark.parametrize("k,shape", [(3, (4, 24)), (7, (6, 40)), (9, (5, 9)), (31, (3, 33)), (31, (2, 16))])
 def test_median_backward_plain_matches_pallas_vjp(rng, k, shape, kind):
     """The port's first-equal-tap rule against ``jax.vjp`` of the Pallas
-    kernel in interpret mode, through ``median_filter`` along both axes.  On
-    windows holding a NaN the forward value is whatever each network makes of
-    it, so that case compares the gradient away from the NaN's windows only."""
+    kernel in interpret mode, through ``median_filter`` along both axes.  A
+    window holding a NaN gives NaN in both (NaNs in the same places); no tap
+    equals it, and that case compares the gradient away from the NaN's
+    windows."""
     x = _median_case(rng, shape, kind)
     g = rng.randn(*shape).astype(np.float32)
     out_j, vjp = jax.vjp(lambda a: sliding_median_lastaxis(a, k), jnp.asarray(x))
@@ -95,6 +96,9 @@ def test_median_backward_plain_matches_pallas_vjp(rng, k, shape, kind):
             np.testing.assert_array_equal(got[2:], want[2:])
             np.testing.assert_array_equal(got[1, far], want[1, far])
             assert np.isfinite(got[:, np.arange(shape[1]) != col]).all()
+            out_np = out.detach().numpy() if axis == 1 else out.detach().numpy().T
+            np.testing.assert_array_equal(out_np, np.asarray(out_j))
+            assert np.isnan(out_np[1, max(0, col - k // 2) : col + k // 2 + 1]).all() and np.isnan(out_np).sum() <= k
         else:
             np.testing.assert_array_equal(got, want)
             np.testing.assert_array_equal(out.detach().numpy() if axis == 1 else out.detach().numpy().T,
@@ -140,6 +144,73 @@ def test_median_filter_gradient_is_its_own_rule(rng):
     xd = torch.as_tensor(rng.permutation(60).reshape(3, 20).astype(np.float64), dtype=torch.float64).requires_grad_()
     assert torch.autograd.gradcheck(lambda a: median_filter(a, 7, -1), (xd,), eps=1e-3, atol=1e-6)
     assert torch.autograd.gradcheck(lambda a: median_filter(a, 5, 0), (xd,), eps=1e-3, atol=1e-6)
+
+
+SHORT = [(k, L) for k in (7, 9, 31) for L in (1, 2, 3, k // 2)]
+
+
+@pytest.mark.parametrize("k,L", SHORT)
+def test_median_plain_short_lines_match_jax(rng, k, L):
+    """Lines no longer than k // 2: the padding keeps reflecting (a triangle
+    wave of period 2(L - 1); L = 1 repeats the sample) as ``jnp.pad`` does in
+    the JAX package's path off the TPU.  Exact: a selection."""
+    for shape, axis in (((3, 6, L), -1), ((3, L, 6), 1), ((L,), 0), ((2, L, 3, 2), 1)):
+        x = rng.randn(*shape).astype(np.float32)
+        got = median_filter(torch.as_tensor(x), k, axis)
+        assert torch.equal(got, median_filter_plain(torch.as_tensor(x), k, axis))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(j_median(jnp.asarray(x), k, axis)))
+
+
+@pytest.mark.parametrize("k,L", SHORT)
+def test_median_backward_plain_short_lines_match_jax_grad(rng, k, L):
+    """The gradient on short lines against ``jax.grad`` of the JAX package's
+    path off the TPU (the Pallas VJP's fold assumes a pad shorter than the
+    line), on distinct values, where every subgradient rule agrees; every
+    padded position that mirrors an input contributes, summed in another
+    order: atol 1e-5."""
+    for shape, axis in (((3, 6, L), -1), ((3, L, 6), 1)):
+        x = rng.randn(*shape).astype(np.float32)
+        w = rng.randn(*shape).astype(np.float32)
+        want = jax.grad(lambda a: jnp.sum(j_median(a, k, axis=axis) * w))(jnp.asarray(x))
+        xt = torch.as_tensor(x).requires_grad_()
+        (median_filter(xt, k, axis) * torch.as_tensor(w)).sum().backward()
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=1e-5)
+        # every cotangent lands somewhere, once
+        np.testing.assert_allclose(xt.grad.numpy().sum(axis), w.sum(axis), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape,k,axis", [((4, 12), 7, -1), ((12, 4), 7, 0), ((3, 40), 31, -1), ((2, 5, 9), 9, 1),
+                                          ((2, 3), 7, -1)])
+def test_median_window_with_nan_matches_jax(rng, shape, k, axis):
+    """A window holding a NaN gives NaN, as ``jnp.median`` over the stacked
+    windows does: NaNs in the same places, every other value equal."""
+    x = rng.randn(*shape).astype(np.float32)
+    x.reshape(-1)[[x.size // 3, x.size - 2]] = np.nan
+    got = median_filter(torch.as_tensor(x), k, axis).numpy()
+    want = np.asarray(j_median(jnp.asarray(x), k, axis))
+    np.testing.assert_array_equal(got, want)
+    assert np.isnan(got).any() and (not np.isnan(got).all() or min(shape) <= k // 2)
+
+
+def test_segmentation_of_a_clip_with_three_beat_synchronous_frames_matches_jax():
+    """Three beat-synchronous frames: both of the segmentation's medians (7
+    taps on the (6, 3) lag matrix, 9 taps on the (3, 3) eigenvectors) pad
+    lines of 3 by 3 and 4.  Values within 1e-4 of the JAX package's, and the
+    gradient flows."""
+    j_seg = importlib.import_module("ssar_tpu.audio.segment")
+    from ssar_tpu_torch.audio import segment as t_seg
+
+    rng = np.random.RandomState(0)
+    env = (np.repeat(rng.randn(3, 5) * 2, 8, axis=0) + 0.1 * rng.randn(24, 5)).astype(np.float32)
+    beats, ks = [8, 16], (2, 4)
+    want = j_seg.laplacian_segmentation(jnp.asarray(env), beats, ks=ks)
+    et = torch.as_tensor(env).requires_grad_()
+    got = t_seg.laplacian_segmentation(et, beats, ks=ks)
+    for g, w, k in zip(got, want, ks):
+        assert tuple(g.shape) == (24, k) and bool(torch.isfinite(g).all())
+        _close(g.detach(), w, 1e-4)
+    sum((s * torch.arange(s.shape[1])).sum() for s in got).backward()
+    assert bool(torch.isfinite(et.grad).all())
 
 
 def test_median_rejects_other_modes():
