@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result line):
      and device time beside the plain version's and its bound;
   3b. kernel check: absdiff (B2) and the S4D Vandermonde forward and backward
      (B3) against their plain versions at the train path's shapes, a 3-minute
-     track's and ragged ones, with their times, plain times and bounds;
+     track's (N = 32 and 64) and ragged ones, two launches bit-identical, with
+     their times, plain times and bounds, and B3's error against float64;
   3c. kernel check: the sliding median's backward (B1 bwd) against its plain
      version (torch.equal) at the HPSS shapes on both axes, the optimize
      path's (2n, n) k = 7 and (n, n) k = 9, batched and ragged shapes, inputs
@@ -614,21 +615,46 @@ def check_absdiff(dev):
     return rows, max_err
 
 
+def vandermonde_f64(args, L: int, g: torch.Tensor):
+    """K and its four gradients (da, db, dcre, dcim) for the cotangent g in
+    float64, from the same fp32-rounded products fl(a l) and fl(b l) that the
+    kernels and the plain version take: what both are held to for the SFU's
+    accuracy cost."""
+    a, b, cre, cim = args
+    l = torch.arange(L, dtype=torch.float32, device=a.device)
+    E = (a[:, :, None] * l).double().exp()
+    x = (b[:, :, None] * l).double()
+    c, s = x.cos(), x.sin()
+    cr, ci = cre.double()[:, :, None], cim.double()[:, :, None]
+    K = 2 * (E * (cr * c - ci * s)).sum(1)
+    gE = g.double()[:, None, :] * E
+    gl = gE * l.double()
+    return K, (2 * (gl * (cr * c - ci * s)).sum(2), -2 * (gl * (cr * s + ci * c)).sum(2), 2 * (gE * c).sum(2),
+               -2 * (gE * s).sum(2))
+
+
 def check_vandermonde(dev):
     """B3 forward and backward against the plain version and its autograd,
     on the inputs of freshly initialised S4D layers (N = 32 is state_dim 64):
     (104, 32, 192) the train path (hidden 32, fixed decoder), (56, 32, 192)
     and (32, 32, 192) hidden 16 and 8, (104, 32, 4320) a 3-minute track,
-    (13, 7, 1000) ragged.  rtol 1e-4 with an atol of 1e-5 of the largest
-    magnitude (exp / sin / cos of the same fp32 products, summed in another
-    order)."""
+    (104, 64, 4320) an S4DLayer(104, 128) on it (|b l| up to ~8.5e4, the
+    angle reduction at its widest), (13, 7, 1000) ragged.  rtol 1e-4 with an
+    atol of 1e-5 of the largest magnitude (exp / sin / cos of the same fp32
+    products, summed in another order); two launches bit-identical.  Both the
+    kernels' and the plain version's largest error against a float64
+    evaluation of the same fp32 products, relative to the largest magnitude,
+    is logged."""
     from ssar_tpu_torch.models.s4 import S4DLayer
     from ssar_tpu_torch.ops import vandermonde_cuda
     from ssar_tpu_torch.ops.vandermonde import s4d_vandermonde, s4d_vandermonde_plain, zoh_factors
 
+    def rel(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows, fwd_err, bwd_err = [], 0.0, 0.0
-    for H, N, L in ((104, 32, 192), (56, 32, 192), (32, 32, 192), (104, 32, 4320), (13, 7, 1000)):
+    for H, N, L in ((104, 32, 192), (56, 32, 192), (32, 32, 192), (104, 32, 4320), (104, 64, 4320), (13, 7, 1000)):
         torch.manual_seed(SEED + H + N)
         layer = S4DLayer(H, 2 * N).to(dev)
         with torch.no_grad():
@@ -640,6 +666,8 @@ def check_vandermonde(dev):
         grads = torch.autograd.grad(K, leaves, g)
         K_plain = s4d_vandermonde_plain(*leaves, L)
         grads_plain = torch.autograd.grad(K_plain, leaves, g, retain_graph=True)
+        again, grads_again = vandermonde_cuda.s4d_vandermonde_cuda(*args, L), \
+            vandermonde_cuda.s4d_vandermonde_bwd_cuda(*args, g)
         torch.cuda.synchronize()
         K, K_ref = K.detach(), K_plain.detach()
         ok, err = within(K, K_ref, 1e-4, 1e-5 * float(K_ref.abs().max()))
@@ -652,6 +680,13 @@ def check_vandermonde(dev):
                 fail(f"s4d_vandermonde_bwd d{name} differs from autograd of the plain version at {(H, N, L)}: "
                      f"max abs error {err:.3g} (largest |grad| {float(b.abs().max()):.3g})")
             bwd_err = max(bwd_err, err)
+        if not torch.equal(again, K) or not all(torch.equal(x, y) for x, y in zip(grads_again, grads)):
+            fail(f"s4d_vandermonde: two launches differ at {(H, N, L)}")
+        K64, grads64 = vandermonde_f64(args, L, g)
+        f64 = {"fwd": rel(K, K64), "plain_fwd": rel(K_ref, K64),
+               "bwd": max(rel(x, y) for x, y in zip(grads, grads64)),
+               "plain_bwd": max(rel(x, y) for x, y in zip(grads_plain, grads64))}
+        del K64, grads64
 
         fns = {"": lambda: vandermonde_cuda.s4d_vandermonde_cuda(*args, L),
                "plain_": lambda: s4d_vandermonde_plain(*args, L),
@@ -667,9 +702,11 @@ def check_vandermonde(dev):
             f"(plain {row['plain_ms']:.4f}, device {row['plain_dev_ms']:.4f}; bound {row['bound_ms']:.5f} by "
             f"{row['bound_by']}); backward {row['bwd_ms']:.4f} ms, device {row['bwd_dev_ms']:.4f} (plain autograd "
             f"{row['bwd_plain_ms']:.4f}, device {row['bwd_plain_dev_ms']:.4f}; bound {row['bwd_bound_ms']:.5f} by "
-            f"{row['bwd_bound_by']})")
-    log(f"[kernel] s4d_vandermonde within tolerance on 5 shapes; max abs error forward {fwd_err:.3g}, "
-        f"backward {bwd_err:.3g}")
+            f"{row['bwd_bound_by']}); largest error against float64 of the same fp32 products, over the largest "
+            f"magnitude: forward kernel {f64['fwd']:.3g}, plain {f64['plain_fwd']:.3g}; backward kernel "
+            f"{f64['bwd']:.3g}, plain {f64['plain_bwd']:.3g}")
+    log(f"[kernel] s4d_vandermonde within tolerance on {len(rows)} shapes, two launches bit-identical; max abs "
+        f"error forward {fwd_err:.3g}, backward {bwd_err:.3g}")
     return rows, fwd_err, bwd_err
 
 

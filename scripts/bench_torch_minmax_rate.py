@@ -1,11 +1,14 @@
-"""Throughput of fp32 min/max and compare-select on a CUDA card, beside fmaf.
+"""Throughput of fp32 min/max, compare-select and the special-function unit
+(SFU) on a CUDA card, beside fmaf.
 
     python3 scripts/bench_torch_minmax_rate.py
 
 The sliding-median kernels are selection networks: the forward is fminf /
 fmaxf, the backward compares and selects.  Their operations bound depends on
 how many of those an SM executes a clock, which the data sheet's FLOP/s (an FMA
-counted twice) does not say.  This builds ``scripts/torch_minmax_rate.cu``
+counted twice) does not say.  The S4D Vandermonde kernels are bound by the
+SFU (three transcendentals a term): the script also times __sinf, __expf and
+one whole Vandermonde term (reported as terms).  This builds ``scripts/torch_minmax_rate.cu``
 with nvcc into ``build/``, runs each variant on a full grid and prints
 operations a second and per clock per SM at the card's maximum SM clock
 (``nvidia-smi``), with the card's name and power limit.
@@ -39,10 +42,13 @@ def main():
     fn = ctypes.CDLL(str(out)).ssar_rate_test
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    blocks, iters = sms * 8, 20000
+    blocks = sms * 8
     buf = torch.empty(blocks * 256, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    for op, name, per_round in ((0, "fmaf", 8), (1, "fminf + fmaxf", 16), (2, "compare + select + add", 24)):
+    for op, name, per_round in ((0, "fmaf", 8), (1, "fminf + fmaxf", 16), (2, "compare + select + add", 24),
+                                (3, "__sinf (MUFU.SIN)", 8), (4, "__expf (MUFU.EX2)", 8),
+                                (5, "Vandermonde forward term (3 MUFU)", 8)):
+        iters = 20000 if op < 3 else 2000  # the SFU's rounds are 8-30x slower
         if fn(op, buf.data_ptr(), blocks, iters, stream) != 0:
             sys.exit(f"launch of {name} failed")
         torch.cuda.synchronize()

@@ -34,6 +34,28 @@ inline void __syncthreads() { emulated_block_barrier->arrive_and_wait(); }
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
 
+// The fast intrinsics, correctly rounded here: the emulation checks what a
+// kernel computes with them, not the SFU's error.  sincosf, fmaf and fabsf
+// are the C library's.
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __expf(float x) { return std::exp(x); }
+inline void __sincosf(float x, float* s, float* c) { *s = std::sin(x); *c = std::cos(x); }
+
+// A warp shuffle as an exchange between two block-wide barrier waits: every
+// thread of the block must reach it, as every thread of a warp must on the
+// card (full mask).  Blocks are whole warps.
+inline float emulated_exchange[1024];
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const unsigned t = threadIdx.x;
+  emulated_exchange[t] = v;
+  __syncthreads();
+  const float other = emulated_exchange[(t & ~31u) | ((t % 32) ^ static_cast<unsigned>(lane_mask))];
+  __syncthreads();
+  return other;
+}
+
 template <typename Body>
 void emulate_launch(unsigned blocks, unsigned threads, Body body) {
   for (unsigned b = 0; b < blocks; ++b) {

@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources into shared libraries at first use.
+"""Build the package's CUDA sources into shared libraries at first use, and
+launch their entry points on PyTorch's stream.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
 ``build/kernels/lib<name>-<hash>.so`` under the checkout (``build/`` is
@@ -18,12 +19,15 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_raw_stream = None  # device index -> the current stream's handle
 build_log: dict[str, dict] = {}  # name -> {"seconds", "ptxas", "path"} of builds made in this process
 
 
@@ -67,3 +71,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)))
         _loaded[name] = lib
     return lib
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on the device's current stream, read as a raw
+    handle (without a Stream object, where this PyTorch has the call); the
+    device guard is entered only for a device that is not the current one."""
+    global _raw_stream
+    if _raw_stream is None:
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda index: torch.cuda.current_stream(index).cuda_stream)
+    if device.index == torch.cuda.current_device():
+        return fn(*args, _raw_stream(device.index))
+    with torch.cuda.device(device):
+        return fn(*args, _raw_stream(device.index))

@@ -32,20 +32,16 @@ bwd_launches = 0
 _LAYOUT_ARGS = [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 4
 _fwd_fn = None
 _bwd_fn = None
-_raw_stream = None  # device index -> the current stream's handle
 
 
 def _resolve():
     """Build (at first use) and bind both entry points."""
-    global _fwd_fn, _bwd_fn, _raw_stream
+    global _fwd_fn, _bwd_fn
     fwd = _build.load("sliding_median").ssar_sliding_median_f32
     fwd.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] + _LAYOUT_ARGS + [ctypes.c_void_p]
     bwd = _build.load("sliding_median_bwd").ssar_sliding_median_bwd_f32
     bwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + _LAYOUT_ARGS + [ctypes.c_void_p]
     fwd.restype = bwd.restype = ctypes.c_int
-    # the raw handle without a Stream object, where this PyTorch has the call
-    _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
-        or (lambda index: torch.cuda.current_stream(index).cuda_stream)
     _fwd_fn, _bwd_fn = fwd, bwd
 
 
@@ -74,14 +70,6 @@ def _check(x: torch.Tensor, k: int, axis: int, who: str) -> int:
     return axis
 
 
-def _launch(fn, device: torch.device, *args) -> int:
-    """``fn(*args, stream)`` on the device's current stream."""
-    if device.index == torch.cuda.current_device():
-        return fn(*args, _raw_stream(device.index))
-    with torch.cuda.device(device):
-        return fn(*args, _raw_stream(device.index))
-
-
 def sliding_median_cuda(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
     """Median of the odd k-wide window along ``axis`` (the last or the one
     before it) of a CUDA float32 tensor, reflect padded (an axis of any
@@ -95,7 +83,7 @@ def sliding_median_cuda(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
     if not x.is_contiguous():
         x = x.contiguous()
     y = torch.empty_like(x)
-    err = _launch(_fwd_fn, x.device, x.data_ptr(), y.data_ptr(), k, *line_layout(x.shape, axis))
+    err = _build.launch(_fwd_fn, x.device, x.data_ptr(), y.data_ptr(), k, *line_layout(x.shape, axis))
     if err != 0:
         raise RuntimeError(f"sliding_median kernel launch failed: cudaError {err}")
     launches += 1
@@ -116,8 +104,8 @@ def sliding_median_bwd_cuda(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
         _resolve()
     x, out, g = (t if t.is_contiguous() else t.contiguous() for t in (x, out, g))
     gx = torch.empty_like(x)
-    err = _launch(_bwd_fn, x.device, x.data_ptr(), out.data_ptr(), g.data_ptr(), gx.data_ptr(), k,
-                  *line_layout(x.shape, axis))
+    err = _build.launch(_bwd_fn, x.device, x.data_ptr(), out.data_ptr(), g.data_ptr(), gx.data_ptr(), k,
+                        *line_layout(x.shape, axis))
     if err != 0:
         raise RuntimeError(f"sliding_median_bwd kernel launch failed: cudaError {err}")
     bwd_launches += 1

@@ -190,7 +190,8 @@ def _s4d_inputs(H: int, N: int, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,N,L", [(104, 32, 192), (32, 32, 192), (13, 7, 1000), (3, 1, 5)])
+@pytest.mark.parametrize("H,N,L", [(104, 32, 192), (32, 32, 192), (104, 64, 4320), (13, 7, 1000), (3, 1, 5),
+                                   (3, 2000, 70)])
 def test_vandermonde_cuda_kernels_match_plain(cuda_device, H, N, L):
     from ssar_tpu_torch.ops import vandermonde_cuda
 
@@ -206,6 +207,9 @@ def test_vandermonde_cuda_kernels_match_plain(cuda_device, H, N, L):
     torch.testing.assert_close(K, K_plain, rtol=1e-4, atol=1e-5 * float(K_plain.abs().max()))
     for name, a, b in zip(("a", "b", "cre", "cim"), got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()), msg=name)
+    args = [t.detach() for t in leaves]  # two launches give the same bits
+    assert torch.equal(vandermonde_cuda.s4d_vandermonde_cuda(*args, L), K)
+    assert all(torch.equal(x, y) for x, y in zip(vandermonde_cuda.s4d_vandermonde_bwd_cuda(*args, g), got))
 
 
 @pytest.mark.cuda
