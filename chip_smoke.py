@@ -6,26 +6,41 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: every CUDA source of the port, compiled with nvcc in parallel;
   3. kernel check: the sliding-median kernel against its plain PyTorch
-     version (torch.equal) at the serve path's and a 3-minute track's shapes,
-     the optimize path's, batched and awkward shapes, lines no longer than
-     k // 2 and inputs holding NaNs (NaNs in the same places), and its time
-     and device time beside the plain version's and its bound;
+     version (torch.equal) at the serve path's, the long-form chunks' and
+     tuning estimate's and a 3-minute track's shapes, the optimize path's, batched and awkward
+     shapes, lines no longer than k // 2 and inputs holding NaNs (NaNs in the
+     same places), and its time and device time beside the plain version's
+     and its bound; the generic kernels (odd k > 31, forward and backward) at
+     k = 33 and 63 the same way;
   3b. kernel check: absdiff (B2) and the S4D Vandermonde forward and backward
      (B3) against their plain versions at the train path's shapes, a 3-minute
      track's (N = 32 and 64) and ragged ones, two launches bit-identical, with
      their times, plain times and bounds, and B3's error against float64;
+     B2 also at float16 and bfloat16 inputs (a float32 round trip);
   3c. kernel check: the sliding median's backward (B1 bwd) against its plain
-     version (torch.equal) at the HPSS shapes on both axes, the optimize
-     path's (2n, n) k = 7 and (n, n) k = 9, batched and ragged shapes, inputs
-     with ties and a constant row; two launches bit-identical; its times,
-     the plain version's and its bound;
+     version (torch.equal) at the HPSS and long-form chunk shapes on both
+     axes, the optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and
+     ragged shapes, inputs with ties and a constant row; two launches
+     bit-identical; its times, the plain version's and its bound;
   4. serve path: a synthetic 8 s track at 44.1 kHz -> audio2features (192, 59)
      -> GRU LatentNoiseReactor (hidden 32, 4 layers, random (96, 18, 512)
      palette) -> 1024 px StyleGAN2 (random weights from the seed, bf16) ->
      192 I420 frames into an in-memory sink; the sliding-median launch count
      is read around this run only;
+  4b. long-form serve path, the JAX package's long-form bench's configuration
+     (bench.py:bench_longform): a synthetic 180 s track at 24576 Hz ->
+     parallel.features_sp.audio2features_long (4320, 59) -> the same GRU
+     reactor over the whole track -> all 4320 frames at 1024 px, bf16, batch
+     64, into the in-memory sink, after a warm-up on 120 s (the same chunk
+     shapes) and one rendered batch; stage seconds, fps, x realtime and peak
+     memory; the sliding-median launch count read around the feature call
+     and checked exactly (4 per chunk + 2 for the tuning estimate);
   5. reference checks: the card's features and synthesis against the same
-     code on the CPU (plain median) at a small size;
+     code on the CPU (plain median) at a small size: the whole-track and the
+     long-form stacks (the long form also within 1 % of the whole-track
+     stack on the card), a synthesis with a static and an animated bend, a
+     non-square output size, and a rosinality .pt written from the random
+     weights and loaded back (the same frames);
   6. train path: ``ssar_tpu_torch.train.train.main`` at the grid of record's
      width (sashimi backbone, fixed decoder, ssabsdiff loss, hidden 32, 4
      layers, batch 32, 8 s windows at 24 fps) on 64 synthetic windows, 40
@@ -82,6 +97,14 @@ TRAIN_FLAGS = ["--backbone", "sashimi", "--decoder", "fixed", "--loss", "ssabsdi
                "--num_layers", "4", "--n_latent_split", "3", "--batch_size", "32", "--lr", "1e-4",
                "--duration", "8", "--fps", "24"]
 TRAIN_STEPS = 40
+# the long-form bench's track (bench.py:bench_longform): 180 s at 1024 * FPS, cut by the default
+# 1440-frame chunks (3 chunks with halos of 64: STFTs of 1440 + 2 * 64 + 1 frames)
+LONG_SECONDS = 180
+LONG_CHUNK_FRAMES = 1569
+# the tuning estimate's HPSS of the track's first 4 s: 4 * FPS + 1 STFT frames
+LONG_TUNING_FRAMES = 97
+LONG_WARM_SECONDS = 120   # two chunks of 1440 frames: the timed run's chunk shapes
+LONG_BATCH = 64
 
 
 def log(*a):
@@ -181,11 +204,12 @@ def median_bwd_bound_ms(numel: int, k: int) -> tuple[float, str, float]:
     return (t_ops, "operations", t_ops) if t_ops >= t_bytes else (t_bytes, "bytes", t_ops)
 
 
-def absdiff_bound_ms(B: int, T: int, E: int) -> tuple[float, str]:
-    """Least time for one batched absdiff: x (B, T, E) fp32 read once and
-    y (B, T) written once at 3.35 TB/s, against a subtract, an absolute value
-    and an add (3 fp32 operations) per element at 67 TFLOP/s."""
-    t_bytes = 4 * B * T * (E + 1) / HBM_BYTES_PER_S * 1e3
+def absdiff_bound_ms(B: int, T: int, E: int, itemsize: int = 4) -> tuple[float, str]:
+    """Least time for one batched absdiff: x (B, T, E) read once and y (B, T)
+    written once (`itemsize` bytes an element) at 3.35 TB/s, against a
+    subtract, an absolute value and an add (3 fp32 operations) per element at
+    67 TFLOP/s."""
+    t_bytes = itemsize * B * T * (E + 1) / HBM_BYTES_PER_S * 1e3
     t_ops = 3 * B * (T - 1) * E / FP32_PEAK_OPS * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -290,6 +314,7 @@ def main():
     n_sync = beat_sync_frames(track40, 44100, dev)
     rows, max_err = check_median(dev, n_sync)
     bwd_rows, bwd_err = check_median_bwd(dev, n_sync)
+    generic_rows, generic_err = check_median_generic(dev)
 
     # --------------------------------------------------------------- 3b --
     absdiff_rows, absdiff_err = check_absdiff(dev)
@@ -353,6 +378,9 @@ def main():
         + f"; end-to-end {total:.3f} s = {T / total:.2f} fps; render {T / stages['render_s']:.2f} fps; "
         f"peak memory {peak_gb:.2f} GiB; sliding_median launches {launches}; frame crc[0] {sink.crcs[0]:08x}")
 
+    # --------------------------------------------------------------- 4b --
+    long_counts = longform_path(dev, synthesizer, config, palette)
+
     # ---------------------------------------------------------------- 5 --
     small = synthetic_track(sr_in, 2.0)
     tun_card = float(estimate_tuning_device(torch.as_tensor(small, device=dev), sr_in))
@@ -384,6 +412,8 @@ def main():
     if yuv_err > 1:
         fail(f"rgb_to_i420 card vs CPU differs by {yuv_err} levels")
     log(f"[reference] synthesis card vs CPU fp32 max {err:.3g}; I420 card vs CPU max {yuv_err} level(s)")
+    reference_longform(dev)
+    reference_wrapper(dev, syn_cpu)
 
     # ---------------------------------------------------------------- 6 --
     train_counts = train_path(dev, feats)
@@ -411,6 +441,17 @@ def main():
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": launches, "max_abs_err": max_err,
         # one HPSS at the main path's shape: the time-axis and the frequency-axis filter of (1025, 193)
         **sums(main_row), "library_ms": None, "launches_optimize": opt_counts["sliding_median"],
+        "launches_longform": long_counts["sliding_median"],
+    }, {
+        "name": "sliding_median_generic", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
+        "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": long_counts["sliding_median_generic"],
+        "max_abs_err": generic_err,
+        # no path runs k > 31: both axes of (1025, 193) at k = 33
+        **sums([r for r in generic_rows if r["k"] == 33]), "library_ms": None,
+    }, {
+        "name": "sliding_median_generic_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median_bwd.cu",
+        "replaces": "ssar_tpu/ops/median_pallas.py:110", "launches": long_counts["sliding_median_generic_bwd"],
+        "max_abs_err": generic_err, **sums([r for r in generic_rows if r["k"] == 33], "bwd_"), "library_ms": None,
     }, {
         "name": "sliding_median_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median_bwd.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:110", "launches": opt_counts["sliding_median_bwd"],
@@ -434,6 +475,182 @@ def main():
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+def longform_path(dev, synthesizer, config, palette) -> dict:
+    """Phase 4b: the long-form bench's configuration end to end on the card,
+    after a warm-up at the same chunk shapes and batch (cuFFT plans, host
+    filter-bank caches, cuDNN heuristics); returns the sliding-median launch
+    counts of the timed run's feature call."""
+    from ssar_tpu_torch.generate.audio2video import react, render_reaction
+    from ssar_tpu_torch.models.reactor import LatentNoiseReactor
+    from ssar_tpu_torch.ops import median_cuda
+    from ssar_tpu_torch.parallel.features_sp import _chunk_plan, audio2features_long
+
+    sr = 1024 * FPS
+    T = LONG_SECONDS * FPS
+    n_chunks = math.ceil(T / 1440)
+    for seconds in (LONG_SECONDS, LONG_WARM_SECONDS):
+        cf = _chunk_plan(seconds * FPS, math.ceil(seconds * FPS / 1440))[2]
+        if cf + 1 != LONG_CHUNK_FRAMES:
+            fail(f"long-form chunks of {cf} frames at {seconds} s, phase 3 timed {LONG_CHUNK_FRAMES - 1}")
+    if 4 * sr // 1024 + 1 != LONG_TUNING_FRAMES:
+        fail(f"the tuning HPSS has {4 * sr // 1024 + 1} frames, phase 3 timed {LONG_TUNING_FRAMES}")
+    want_b1 = 4 * n_chunks + 2  # two HPSS a chunk (the chromagram separates again), one for the tuning
+
+    def run(track, n_frames):
+        """Features, reactor and the render of the first `n_frames` frames,
+        with the B1 counts of the feature call and the stage boundaries."""
+        torch.cuda.synchronize()
+        median_cuda.launches = median_cuda.generic_launches = median_cuda.generic_bwd_launches = 0
+        t_a = time.perf_counter()
+        feats = audio2features_long(track, sr, FPS, device=dev)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        counts = {"sliding_median": median_cuda.launches, "sliding_median_generic": median_cuda.generic_launches,
+                  "sliding_median_generic_bwd": median_cuda.generic_bwd_launches}
+        model = LatentNoiseReactor(feats.mean(0), feats.std(0) + 1e-6, palette, backbone="gru", hidden_size=32,
+                                   num_layers=4).to(dev).eval()
+        latents, noise = react(model, feats, torch.Generator(dev).manual_seed(SEED + 1))
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        sink = FrameSink((1536, 1024))
+        render_reaction(latents[:n_frames], [n[:n_frames] for n in noise], output_size=(1024, 1024),
+                        batch_size=LONG_BATCH, gan_config=config, synthesizer=synthesizer, writer=sink)
+        torch.cuda.synchronize()
+        return feats, latents, sink, counts, (t_a, t_b, t_c, time.perf_counter())
+
+    run(synthetic_track(sr, LONG_WARM_SECONDS), LONG_BATCH)
+    track = synthetic_track(sr, LONG_SECONDS)   # bench_longform's track: the same tone, noise and clicks
+    torch.cuda.reset_peak_memory_stats()
+    feats, latents, sink, counts, (t_a, t_b, t_c, t_d) = run(track, T)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    if tuple(feats.shape) != (T, 59) or not bool(torch.isfinite(feats).all()):
+        fail(f"long-form features {tuple(feats.shape)}, finite={bool(torch.isfinite(feats).all())}")
+    if tuple(latents.shape) != (T, 18, 512) or not bool(torch.isfinite(latents).all()):
+        fail(f"long-form latents {tuple(latents.shape)}")
+    if len(sink.crcs) != T or len(set(sink.crcs)) < T // 2 or not (16 <= sink.y_range[0] <= sink.y_range[1] <= 235):
+        fail(f"long-form frames: {len(sink.crcs)} written, {len(set(sink.crcs))} distinct, luma {sink.y_range}")
+    if counts != {"sliding_median": want_b1, "sliding_median_generic": 0, "sliding_median_generic_bwd": 0}:
+        fail(f"long-form features launched the median kernels {counts}, expected {want_b1} and no generic one")
+    total = t_d - t_a
+    log(f"[longform] {LONG_SECONDS} s @ {sr} Hz -> audio2features_long {tuple(feats.shape)} in {n_chunks} chunks -> "
+        f"latents {tuple(latents.shape)} -> {len(sink.crcs)} I420 frames 1024x1024, batch {LONG_BATCH}, bf16 "
+        f"(warmed up on {LONG_WARM_SECONDS} s and one batch)")
+    log(f"[longform] features_s {t_b - t_a:.3f}, reactor_s {t_c - t_b:.3f}, render_s {t_d - t_c:.3f}; end-to-end "
+        f"{total:.3f} s = {T / total:.2f} fps = {LONG_SECONDS / total:.2f}x realtime; render {T / (t_d - t_c):.2f} fps; "
+        f"peak memory {peak_gb:.2f} GiB; sliding_median launches {counts['sliding_median']} (expected {want_b1}); "
+        f"frame crc[0] {sink.crcs[0]:08x}")
+    return counts
+
+
+def reference_longform(dev):
+    """Phase 5, long form: 30 s in chunks of 240 frames (3 chunks) on the
+    card and on the CPU within the docs/PARITY.md budgets, with a fixed
+    tuning and with the host estimate (the same on both); on the card within
+    1 % of the largest feature of the whole-track stack (the bound
+    tests/test_parallel.py sets)."""
+    from ssar_tpu_torch.audio.features import PARITY_BUDGETS, audio2features, harmonic
+    from ssar_tpu_torch.audio.pitch import estimate_tuning
+    from ssar_tpu_torch.parallel.features_sp import audio2features_long
+
+    sr = 1024 * FPS
+    track = synthetic_track(sr, 30.0)
+    # the tuning audio2features_long estimates when given none: the harmonic part of the first 4 s
+    tunings = [estimate_tuning(harmonic(torch.as_tensor(track[: 4 * sr], device=d)), sr, bins_per_octave=36)
+               for d in (dev, "cpu")]
+    if tunings[0] != tunings[1]:
+        fail(f"long-form tuning estimate on the card {tunings[0]} != CPU {tunings[1]}")
+    cards = {}
+    for tuning in (0.0, None):
+        card = cards[tuning] = audio2features_long(track, sr, FPS, chunk_frames=240, tuning=tuning, device=dev).cpu()
+        cpu = audio2features_long(track, sr, FPS, chunk_frames=240, tuning=tuning, device="cpu")
+        for group, (cols, budget) in PARITY_BUDGETS.items():
+            err = float((card[:, cols] - cpu[:, cols]).abs().max())
+            if err > budget:
+                fail(f"long-form features (tuning={tuning}) card vs CPU: {group} deviates by {err:.3g} > {budget}")
+        log(f"[reference] long-form features (30 s, 3 chunks, tuning={tuning}) card vs CPU within the budgets, "
+            f"max {float((card - cpu).abs().max()):.3g}")
+    card = cards[0.0]
+    whole = audio2features(track, sr, FPS, tuning=0.0, device=dev).cpu()
+    dev_whole = float((card - whole).abs().max())
+    if tuple(card.shape) != (720, 59) or not dev_whole < 0.01 * float(whole.abs().max()):
+        fail(f"long-form features {tuple(card.shape)} deviate from the whole-track stack by {dev_whole:.3g}")
+    log(f"[reference] long-form tuning estimate {tunings[0]} on both; long-form features (tuning=0.0) against the "
+        f"whole-track stack on the card {dev_whole:.3g} (largest feature {float(whole.abs().max()):.3g})")
+
+
+def _rosinality_sd(params: dict) -> dict:
+    """The port's parameters as a rosinality Generator state dict."""
+    sd = {"input.input": params["const"][None], "latent_avg": params["w_avg"]}
+    for i, lin in enumerate(params["mapping"]):
+        sd[f"style.{i + 1}.weight"], sd[f"style.{i + 1}.bias"] = lin["weight"], lin["bias"]
+
+    def put(prefix, p):
+        sd[f"{prefix}.conv.weight"] = p["weight"][None]
+        sd[f"{prefix}.conv.modulation.weight"], sd[f"{prefix}.conv.modulation.bias"] = p["mod"]["weight"], p["mod"]["bias"]
+        if "noise_weight" in p:
+            sd[f"{prefix}.noise.weight"], sd[f"{prefix}.activate.bias"] = p["noise_weight"].reshape(1), p["bias"]
+        else:
+            sd[f"{prefix}.bias"] = p["bias"].reshape(1, 3, 1, 1)
+
+    put("conv1", params["conv1"])
+    put("to_rgb1", params["to_rgb1"])
+    for i, p in enumerate(params["convs"]):
+        put(f"convs.{i}", p)
+    for i, p in enumerate(params["to_rgbs"]):
+        put(f"to_rgbs.{i}", p)
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def reference_wrapper(dev, syn_cpu):
+    """Phase 5, the wrapper at 128 px (64 channels), fp32: a static and an
+    animated bend and a non-square output size (96, 64) at 64 px native, card
+    against CPU within 1e-3; a rosinality .pt written from the random weights
+    and loaded back renders the same frames on the card."""
+    from ssar_tpu_torch.gan.render import render_latents_to_video
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Synthesizer
+    from ssar_tpu_torch.utils.device import full_precision
+
+    cfg = syn_cpu.config
+    rng = np.random.RandomState(SEED + 9)
+    mod = rng.randn(12).astype(np.float32)
+    bends = [{"layer": 1, "transform": lambda x: 1.5 * x + 0.1},
+             {"layer": 3, "transform": lambda x, m: x + m[:, None, None, None], "modulation": mod}]
+    lat = torch.as_tensor(rng.randn(4, cfg.n_latent, 512).astype(np.float32))
+    frame_idx = [2, 5, 11, 40]   # the last is clipped to the modulation's length
+    out = []   # (bent, non-square) images on the card, then on the CPU
+    for device in (dev, torch.device("cpu")):
+        syn = StyleGAN2Synthesizer(config=cfg, dtype=torch.float32, device=device, params=_to(syn_cpu.params, device))
+        syn.set_bends(bends)
+        small = StyleGAN2Synthesizer(config=StyleGAN2Config(resolution=64, max_channels=64), output_size=(96, 64),
+                                     seed=SEED, dtype=torch.float32, device=device)
+        with full_precision():
+            out.append((syn(lat, frame_idx=frame_idx).cpu(), small(lat[:, :small.config.n_latent]).cpu()))
+    errs = [float((a - b).abs().max()) for a, b in zip(*out)]
+    for name, err in zip(("bent", "non-square"), errs):
+        if err > 1e-3:
+            fail(f"synthesis ({name}) card vs CPU deviates by {err:.3g}")
+    if tuple(out[0][1].shape) != (4, 64, 96, 3):
+        fail(f"non-square output {tuple(out[0][1].shape)}, expected (4, 64, 96, 3)")
+
+    path = ROOT / "build" / "chip_smoke_runs" / "g_random.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    params = _to(syn_cpu.params, dev)
+    torch.save({"g_ema": _rosinality_sd(params)}, path)
+    frames = []
+    for syn in (StyleGAN2Synthesizer(config=cfg, dtype=torch.bfloat16, device=dev, params=params),
+                StyleGAN2Synthesizer(model_file=str(path), config=cfg, dtype=torch.bfloat16, device=dev)):
+        sink = render_latents_to_video(syn, lat, None, batch_size=4, progress=False,
+                                       writer=FrameSink((3 * cfg.resolution // 2, cfg.resolution)))
+        frames.append(sink.crcs)
+    if frames[0] != frames[1] or len(frames[0]) != 4:
+        fail(f"frames of the .pt loaded back differ from its parameters' ({frames})")
+    log(f"[reference] wrapper card vs CPU fp32: bent synthesis max {errs[0]:.3g}, (96, 64) from 64 px max "
+        f"{errs[1]:.3g}; a rosinality .pt of the random weights renders the same {len(frames[0])} frames "
+        f"(crc[0] {frames[0][0]:08x})")
 
 
 def beat_sync_frames(track: np.ndarray, sr: int, dev) -> int:
@@ -477,16 +694,18 @@ def equal_with_nans(got: torch.Tensor, want: torch.Tensor) -> bool:
 
 def check_median(dev, n_sync: int):
     """B1's forward against its plain version, exactly (a selection): the
-    serve path's (1025, 193) and a 3-minute track's (1025, 4320) on both
-    axes, the optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and
-    awkward shapes, short lines, and on each an input holding NaNs (a window
-    with a NaN gives NaN in both)."""
+    serve path's (1025, 193), the long-form chunks' (1025, 1569) and tuning
+    HPSS's (1025, 97), a 3-minute track's (1025, 4320) on both axes, the
+    optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and awkward
+    shapes, short lines, and on each an input holding NaNs (a window with a
+    NaN gives NaN in both)."""
     from ssar_tpu_torch.ops.median import median_filter, median_filter_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     n = n_sync
     path = [((2 * n, n), 7), ((n, n), 9)]
-    timed = [((1025, 193), 31), ((1025, 192), 31), ((1025, 4320), 31), ((4, 1025, 4320), 31)] + path
+    timed = [((1025, 193), 31), ((1025, 192), 31), ((1025, LONG_CHUNK_FRAMES), 31),
+             ((1025, LONG_TUNING_FRAMES), 31), ((1025, 4320), 31), ((4, 1025, 4320), 31)] + path
     checks = timed + [((1000, 100), 31), ((37, 16), 31), ((3, 53, 77), 7), ((53, 77), 9), ((130, 70), 9)] + SHORT_LINES
     max_err, rows, n_nan = 0.0, [], 0
     for shape, k in checks:
@@ -526,7 +745,8 @@ def check_median(dev, n_sync: int):
 
 def check_median_bwd(dev, n_sync: int):
     """B1's backward against its plain version, bit for bit (the kernel
-    gathers in the order the plain version adds): HPSS shapes on both axes,
+    gathers in the order the plain version adds): HPSS shapes (the serve
+    path's, the long-form chunks', a 3-minute track's) on both axes,
     the optimize path's (2n, n) k = 7 and (n, n) k = 9 at the 40 s track's n,
     batched and ragged shapes, short lines; on distinct values, on quantised
     values with a constant row and on inputs holding NaNs (their windows
@@ -537,7 +757,7 @@ def check_median_bwd(dev, n_sync: int):
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     n = n_sync
     path = [((2 * n, n), 7), ((n, n), 9)]
-    timed = [((1025, 193), 31), ((1025, 4320), 31)] + path
+    timed = [((1025, 193), 31), ((1025, LONG_CHUNK_FRAMES), 31), ((1025, 4320), 31)] + path
     checks = timed + [((4, 1025, 300), 31), ((1000, 100), 31), ((37, 16), 31), ((3, 53, 77), 7), ((130, 70), 9),
                       ((5, 9), 9), ((3, 5, 40), 1)] + SHORT_LINES
     rows, max_err = [], 0.0
@@ -582,11 +802,66 @@ def check_median_bwd(dev, n_sync: int):
     return rows, max_err
 
 
+GENERIC = [((1025, 193), 33), ((1025, 193), 63), ((3, 40, 70), 33), ((37, 16), 63), ((5, 9), 33)]
+
+
+def check_median_generic(dev):
+    """The generic kernels (odd k > 31, forward and backward) against the
+    plain versions, bit for bit, on distinct, tied and NaN-holding inputs on
+    both axes, each launch counted apart from the templated kernels'; timed
+    at (1025, 193), k = 33 and 63, on distinct values."""
+    from ssar_tpu_torch.ops import median_cuda
+    from ssar_tpu_torch.ops.median import median_filter_plain, sliding_median_bwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows, max_err = [], 0.0
+    for shape, k in GENERIC:
+        for kind in ("distinct", "ties", "nan"):
+            x = median_case(shape, kind, g, dev)
+            cot = torch.randn(shape, generator=g, device=dev)
+            for axis in (-1, -2):
+                a = axis % x.ndim
+                before = (median_cuda.launches, median_cuda.generic_launches, median_cuda.generic_bwd_launches)
+                out = median_cuda.sliding_median_cuda(x, k, a)
+                gx = median_cuda.sliding_median_bwd_cuda(x, out, cot, k, a)
+                after = (median_cuda.launches, median_cuda.generic_launches, median_cuda.generic_bwd_launches)
+                if after != (before[0], before[1] + 1, before[2] + 1):
+                    fail(f"generic median at k={k}: launch counts {before} -> {after}")
+                want = median_filter_plain(x, k, axis)
+                want_gx = sliding_median_bwd_plain(x, want, cot, k, axis)
+                torch.cuda.synchronize()
+                if not equal_with_nans(out, want) or not torch.equal(gx, want_gx):
+                    fail(f"generic median differs from the plain version at {shape}, k={k}, axis={axis}, {kind}")
+                if kind != "distinct":
+                    continue
+                max_err = max(max_err, float((out - want).abs().max()), float((gx - want_gx).abs().max()))
+                if shape != (1025, 193):
+                    continue
+                fwd = lambda: median_cuda.sliding_median_cuda(x, k, a)  # noqa: E731
+                bwd = lambda: median_cuda.sliding_median_bwd_cuda(x, out, cot, k, a)  # noqa: E731
+                row = {"shape": list(shape), "k": k, "axis": axis, "ms": cuda_ms(fwd), "dev_ms": device_ms_per_call(fwd),
+                       "plain_ms": cuda_ms(lambda: median_filter_plain(x, k, axis), runs=10),
+                       "bwd_ms": cuda_ms(bwd), "bwd_dev_ms": device_ms_per_call(bwd),
+                       "bwd_plain_ms": cuda_ms(lambda: sliding_median_bwd_plain(x, out, cot, k, axis), runs=5)}
+                row["bound_ms"], row["bound_by"], _ = median_bound_ms(x.numel(), k)
+                row["bwd_bound_ms"], row["bwd_bound_by"], _ = median_bwd_bound_ms(x.numel(), k)
+                rows.append(row)
+                log(f"[kernel] sliding_median generic {shape} k={k} axis={axis}: forward {row['ms']:.4f} ms, device "
+                    f"{row['dev_ms']:.4f} (plain {row['plain_ms']:.3f}; bound {row['bound_ms']:.5f} by "
+                    f"{row['bound_by']}); backward {row['bwd_ms']:.4f} ms, device {row['bwd_dev_ms']:.4f} (plain "
+                    f"{row['bwd_plain_ms']:.3f}; bound {row['bwd_bound_ms']:.5f} by {row['bwd_bound_by']})")
+    log(f"[kernel] sliding_median generic (k > 31) forward and backward bit-exact on {len(GENERIC)} shapes x both "
+        f"axes x (distinct, tied, NaN) inputs")
+    return rows, max_err
+
+
 def check_absdiff(dev):
     """B2 against its plain version at the ssabsdiff loss's shapes (batch 32,
     8 s windows: latents 18 x 512 and the 4..32 px noise maps), ragged and
     T = 2 shapes; rtol 1e-5 (float32 sums of positive terms in another
-    order), and two launches equal bit for bit."""
+    order), and two launches equal bit for bit; then float16 and bfloat16
+    inputs at the latents' shape."""
+    from ssar_tpu_torch.ops import absdiff_cuda
     from ssar_tpu_torch.ops.absdiff import batch_absdiff, batch_absdiff_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -612,6 +887,25 @@ def check_absdiff(dev):
         log(f"[kernel] absdiff {shape}: {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
             f"device {row['plain_dev_ms']:.4f}; bound {row['bound_ms']:.5f} ms by {row['bound_by']}); "
             f"max abs error {err:.3g}")
+    # other floating dtypes: a float32 round trip through the kernel, held to the float32 plain version's
+    # result cast to the dtype within one unit in its last place
+    for dtype in (torch.float16, torch.bfloat16):
+        x = torch.randn(path[0], generator=g, device=dev).to(dtype)
+        before = absdiff_cuda.launches
+        got = batch_absdiff(x)
+        if absdiff_cuda.launches != before + 1 or got.dtype != dtype:
+            fail(f"absdiff at {dtype} did not launch the kernel once (or returned {got.dtype})")
+        ok, err = within(got.float(), batch_absdiff_plain(x.float()).to(dtype).float(), torch.finfo(dtype).eps, 0.0)
+        if not ok:
+            fail(f"absdiff at {dtype} differs from the float32 plain version by {err:.3g}")
+        row = {"shape": list(path[0]), "dtype": str(dtype), "path": False, "ms": cuda_ms(lambda: batch_absdiff(x)),
+               "plain_ms": cuda_ms(lambda: batch_absdiff_plain(x)), "dev_ms": device_ms_per_call(lambda: batch_absdiff(x)),
+               "plain_dev_ms": device_ms_per_call(lambda: batch_absdiff_plain(x))}
+        row["bound_ms"], row["bound_by"] = absdiff_bound_ms(*path[0], itemsize=x.element_size())
+        rows.append(row)
+        log(f"[kernel] absdiff {path[0]} {dtype}: {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms (plain in "
+            f"{dtype} {row['plain_ms']:.4f}, device {row['plain_dev_ms']:.4f}; bound {row['bound_ms']:.5f} ms by "
+            f"{row['bound_by']}); max abs error against the float32 plain version cast {err:.3g}")
     return rows, max_err
 
 

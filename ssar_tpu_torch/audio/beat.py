@@ -77,8 +77,11 @@ def fourier_tempo_frequencies(sr: int, win_length: int = 1024, hop_length: int =
     return np.linspace(0, float(rate) / 2, int(1 + win_length // 2)).astype(np.float32)
 
 
-def fourier_tempogram(onset_envelope: torch.Tensor, win_length: int = 1024) -> torch.Tensor:
-    """STFT of the onset envelope at hop 1, (1 + win//2, T + 1) complex."""
+def fourier_tempogram(onset_envelope: torch.Tensor, sr: int = 22050, hop_length: int = 1024,
+                      win_length: int = 1024) -> torch.Tensor:
+    """STFT of the onset envelope at hop 1, (1 + win//2, T + 1) complex.  `sr`
+    and `hop_length` are the envelope's, taken for the reference's signature
+    and not used."""
     return stft(onset_envelope, n_fft=win_length, hop_length=1, center=True, window="hann")
 
 
@@ -94,7 +97,7 @@ def plp_from_onset_env(onset_env: torch.Tensor, sr: int, hop_length: int = 1024,
                        win_length: int = 1024, tempo_min: float | None = 60,
                        tempo_max: float | None = 180) -> torch.Tensor:
     max_win = min(onset_env.shape[0], win_length)
-    ftgram = fourier_tempogram(onset_env, win_length=max_win)
+    ftgram = fourier_tempogram(onset_env, sr=sr, hop_length=hop_length, win_length=max_win)
     freqs = torch.as_tensor(fourier_tempo_frequencies(sr, hop_length=hop_length, win_length=max_win),
                             device=ftgram.device)[:, None]
     zero = torch.zeros((), dtype=ftgram.dtype, device=ftgram.device)

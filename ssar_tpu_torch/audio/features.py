@@ -79,14 +79,16 @@ def drop_strength(audio: torch.Tensor, sr: int) -> torch.Tensor:
     return emphasize(gaussian_filter(rms(audio, sr), 10), strength=10, percentile=50)[:, None]
 
 
-def chromagram(audio: torch.Tensor, sr: int, tuning: float | torch.Tensor | None = None) -> torch.Tensor:
+def chromagram(audio: torch.Tensor, sr: int, tuning: float | torch.Tensor | None = None,
+               method: str = "recursive") -> torch.Tensor:
     """CENS chroma of the re-separated harmonic audio, (T, 12).  `tuning` is a
     host float, a 0-d device tensor (interpolated CQT basis) or ``None``: the
-    deviation is then estimated on the device from the harmonic signal."""
+    deviation is then estimated on the device from the harmonic signal.
+    `method` is the CQT's (``"recursive"`` or ``"direct"``)."""
     h = harmonic(audio)
     if tuning is None:
         tuning = estimate_tuning_device(h, sr)
-    return chroma_cens(h, sr, tuning=tuning).T
+    return chroma_cens(h, sr, tuning=tuning, method=method).T
 
 
 def _tonnetz_of_chroma(chroma: torch.Tensor) -> torch.Tensor:
@@ -103,10 +105,10 @@ def _tonnetz_of_chroma(chroma: torch.Tensor) -> torch.Tensor:
 
 
 def tonnetz(y: torch.Tensor | None, sr: int, chroma: torch.Tensor | None = None,
-            tuning: float | torch.Tensor | None = None) -> torch.Tensor:
+            tuning: float | torch.Tensor | None = None, method: str = "recursive") -> torch.Tensor:
     """Tonal centroid features, (T, 6), of the waveform `y` or of a (T, 12)
     `chroma` computed beforehand."""
-    return _tonnetz_of_chroma(chromagram(y, sr, tuning=tuning) if chroma is None else chroma)
+    return _tonnetz_of_chroma(chromagram(y, sr, tuning=tuning, method=method) if chroma is None else chroma)
 
 
 def pulse(audio: torch.Tensor, sr: int) -> torch.Tensor:
@@ -121,9 +123,11 @@ def mfcc(y: torch.Tensor, sr: int, n_mfcc: int = 20) -> torch.Tensor:
 
 
 def spectral_contrast(y: torch.Tensor, sr: int, n_fft: int = 2048, hop_length: int = 1024,
-                      fmin: float = 200.0, n_bands: int = 6, quantile: float = 0.02) -> torch.Tensor:
-    """Octave-band spectral valley/peak contrast, (T, n_bands + 1).  Band
-    memberships depend only on (sr, n_fft) and are resolved on the host."""
+                      fmin: float = 200.0, n_bands: int = 6, quantile: float = 0.02,
+                      linear: bool = False) -> torch.Tensor:
+    """Octave-band spectral valley/peak contrast, (T, n_bands + 1): in dB, or
+    the linear peak - valley with ``linear``.  Band memberships depend only on
+    (sr, n_fft) and are resolved on the host."""
     S = spectrogram(y, n_fft=n_fft, hop_length=hop_length)
     freq = np.linspace(0, float(sr) / 2, int(1 + n_fft // 2))
     octa = np.zeros(n_bands + 2)
@@ -148,16 +152,20 @@ def spectral_contrast(y: torch.Tensor, sr: int, n_fft: int = 2048, hop_length: i
         srt = torch.sort(sub, dim=0).values
         valleys.append(srt[:n_take].mean(dim=0))
         peaks.append(srt[-n_take:].mean(dim=0))
-    return (power_to_db(torch.stack(peaks)) - power_to_db(torch.stack(valleys))).T
+    peak, valley = torch.stack(peaks), torch.stack(valleys)
+    if linear:
+        return (peak - valley).T
+    return (power_to_db(peak) - power_to_db(valley)).T
 
 
-def spectral_flatness(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 1024,
+def spectral_flatness(y: torch.Tensor, sr: int, n_fft: int = 2048, hop_length: int = 1024,
                       amin: float = 1e-10, power: float = 2.0) -> torch.Tensor:
-    """(T,)."""
+    """(T, 1).  `sr` is taken for the common ``fn(audio, sr)`` signature and
+    not used."""
     S = spectrogram(y, n_fft=n_fft, hop_length=hop_length, power=1.0)
     S_thresh = torch.clamp(S**power, min=amin)
     gmean = torch.exp(torch.log(S_thresh).mean(dim=0))
-    return gmean / S_thresh.mean(dim=0)
+    return (gmean / S_thresh.mean(dim=0))[:, None]
 
 
 def rms_multi(signals: torch.Tensor, frame_length: int = 2048, hop_length: int = 1024) -> torch.Tensor:
@@ -181,14 +189,14 @@ def _post(features: torch.Tensor, fps: int, clamp: bool, smooth: bool, emphasis:
 
 def features_at_rate(audio: torch.Tensor, sr: int, fps: int, clamp: bool = True, smooth: bool = True,
                      emphasis: bool = False, tuning: float | None = None,
-                     velocity: bool = False) -> torch.Tensor:
+                     velocity: bool = False, cqt_method: str = "recursive") -> torch.Tensor:
     """The (T, 59) stack of a mono waveform already at ``sr = 1024 * fps``,
     on the waveform's device."""
     audio_harm, audio_perc = harmonic_percussive(audio)
 
     mf = mfcc(audio, sr)
     contrast = spectral_contrast(audio, sr)
-    flat = spectral_flatness(audio)
+    flat = spectral_flatness(audio, sr)
 
     if tuning is None:
         # tuning stays a device scalar, estimated on exactly 4 s of the
@@ -198,7 +206,7 @@ def features_at_rate(audio: torch.Tensor, sr: int, fps: int, clamp: bool = True,
         tuning = estimate_tuning_device(seg, sr, bins_per_octave=36)
     else:
         tuning = float(tuning)
-    chroma = chromagram(audio_harm, sr, tuning)
+    chroma = chromagram(audio_harm, sr, tuning, method=cqt_method)
     ton = tonnetz(None, sr, chroma=chroma)
 
     # band onsets from one batched mel pipeline; mid_pass(x) == low_pass(high_pass(x))
@@ -223,14 +231,14 @@ def features_at_rate(audio: torch.Tensor, sr: int, fps: int, clamp: bool = True,
 
 def audio2features(audio, sr: int, fps: int, clamp: bool = True, smooth: bool = True,
                    emphasis: bool = False, tuning: float | None = None, velocity: bool = False,
-                   device: str | torch.device | None = None) -> torch.Tensor:
+                   cqt_method: str = "recursive", device: str | torch.device | None = None) -> torch.Tensor:
     """(T, 59) canonical feature stack of a waveform (numpy or tensor, (L,) mono
     or (C, L)), resampled to ``1024 * fps``.
 
     Runs on the CUDA device unless ``device`` says otherwise (``"cpu"``);
     raises when no CUDA device is present and none was named.  ``tuning=None``
-    estimates the tuning on the device; a float fixes it.  The CQT is the
-    recursive one, as in the reference stack.
+    estimates the tuning on the device; a float fixes it.  `cqt_method` is the
+    chroma's CQT: ``"recursive"`` (the reference stack's) or ``"direct"``.
     """
     device = resolve_device(device)
     audio = torch.as_tensor(audio, dtype=torch.float32).to(device)
@@ -241,4 +249,4 @@ def audio2features(audio, sr: int, fps: int, clamp: bool = True, smooth: bool = 
         if sr != target_sr:
             audio = resample(audio, sr, target_sr, lowpass_filter_width=6)
         return features_at_rate(audio, target_sr, fps, clamp=clamp, smooth=smooth, emphasis=emphasis,
-                                tuning=tuning, velocity=velocity)
+                                tuning=tuning, velocity=velocity, cqt_method=cqt_method)

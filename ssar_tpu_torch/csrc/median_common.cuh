@@ -1,5 +1,6 @@
 // Shared by sliding_median.cu and sliding_median_bwd.cu: the tile both
-// kernels work on and the reflect padding's index map.
+// templated kernels work on, the reflect padding's index map, and the generic
+// kernels' work item.
 #pragma once
 
 namespace ssar_median {
@@ -101,6 +102,24 @@ __device__ __forceinline__ int reflect_index(int q, int L) {
   int r = q < 0 ? -q : q;
   r = r >= L ? 2 * (L - 1) - r : r;
   return r >= 0 && r < L ? r : reflect_index_far(q, L);
+}
+
+// The generic kernels' (odd K > 31) work item idx, one output or input a
+// thread: its line and its position on the line, ordered so that
+// neighbouring threads take neighbouring addresses: along a line when its
+// positions are contiguous, across the lines of a batch otherwise.
+template <bool CONTIG>
+__device__ __forceinline__ void generic_item(long long idx, int L, long long lines_per_batch, long long* line,
+                                             int* t) {
+  if (CONTIG) {
+    *line = idx / L;
+    *t = static_cast<int>(idx - *line * L);
+  } else {
+    const long long per_batch = static_cast<long long>(L) * lines_per_batch;
+    const long long b = idx / per_batch, rem = idx - b * per_batch;
+    *t = static_cast<int>(rem / lines_per_batch);
+    *line = b * lines_per_batch + (rem - static_cast<long long>(*t) * lines_per_batch);
+  }
 }
 
 }  // namespace ssar_median

@@ -259,14 +259,76 @@ cudaError_t launch(const float* x, float* y, long long n_lines, int L, long long
   return cudaGetLastError();
 }
 
+// ---- the generic path: odd K > 31, K a run-time argument ----------------------
+//
+// The Pallas kernel takes any odd K; no caller passes one above 31, so this
+// path is simple rather than fast: one thread an output, its window read
+// straight from device memory (through L1), and the median selected by
+// counting ranks: the tap v with fewer than H + 1 taps below it and more
+// than H at or below it (K^2 compares an output).  A window with a NaN gives
+// NaN, as on the templated path.
+
+template <bool CONTIG>
+__global__ void __launch_bounds__(kThreads)
+sliding_median_generic_kernel(const float* __restrict__ x, float* __restrict__ y, int K, long long n_lines,
+                              int L, long long lines_per_batch, long long batch_stride, long long line_stride,
+                              long long pos_stride) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= n_lines * L) return;
+  long long line;
+  int t;
+  generic_item<CONTIG>(idx, L, lines_per_batch, &line, &t);
+  const long long base = line_offset(line, n_lines, lines_per_batch, batch_stride, line_stride);
+  const int H = K / 2;
+  auto tap = [&](int i) { return x[offset_on_line<CONTIG>(base, reflect_index(t - H + i, L), pos_stride)]; };
+
+  float m = __int_as_float(0x7fc00000);
+  bool nan = false;
+  for (int i = 0; i < K; ++i) nan |= tap(i) != tap(i);
+  if (!nan) {
+    for (int i = 0; i < K; ++i) {
+      const float v = tap(i);
+      int below = 0, at_or_below = 0;
+      for (int j = 0; j < K; ++j) {
+        const float w = tap(j);
+        below += w < v;
+        at_or_below += w <= v;
+      }
+      if (below <= H && at_or_below > H) {
+        m = v;
+        break;
+      }
+    }
+  }
+  y[offset_on_line<CONTIG>(base, t, pos_stride)] = m;
+}
+
+cudaError_t launch_generic(const float* x, float* y, int k, long long n_lines, int L, long long lines_per_batch,
+                           long long batch_stride, long long line_stride, long long pos_stride,
+                           cudaStream_t stream) {
+  const long long n_blocks = (n_lines * L + kThreads - 1) / kThreads;
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const unsigned blocks = static_cast<unsigned>(n_blocks);
+  if (pos_stride == 1) {
+    auto kernel = sliding_median_generic_kernel<true>;
+    SSAR_LAUNCH(kernel, blocks, kThreads, stream, x, y, k, n_lines, L, lines_per_batch, batch_stride, line_stride,
+                pos_stride);
+  } else {
+    auto kernel = sliding_median_generic_kernel<false>;
+    SSAR_LAUNCH(kernel, blocks, kThreads, stream, x, y, k, n_lines, L, lines_per_batch, batch_stride, line_stride,
+                pos_stride);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  Line r starts at
 // (r / lines_per_batch) * batch_stride + (r % lines_per_batch) * line_stride
 // and steps by pos_stride (all in elements); every L >= 1 is taken.  Launches
 // on `stream`, does not synchronise, and returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for a window width without an instantiation
-// or an empty tensor).
+// launch (cudaErrorInvalidValue for an even or negative window width or an
+// empty tensor).  Odd widths above 31 take the generic kernel.
 extern "C" int ssar_sliding_median_f32(const float* x, float* y, int k, long long n_lines, int L,
                                        long long lines_per_batch, long long batch_stride,
                                        long long line_stride, long long pos_stride, void* stream) {
@@ -278,7 +340,10 @@ extern "C" int ssar_sliding_median_f32(const float* x, float* y, int k, long lon
     SSAR_CASE(1) SSAR_CASE(3) SSAR_CASE(5) SSAR_CASE(7) SSAR_CASE(9) SSAR_CASE(11) SSAR_CASE(13)
     SSAR_CASE(15) SSAR_CASE(17) SSAR_CASE(19) SSAR_CASE(21) SSAR_CASE(23) SSAR_CASE(25)
     SSAR_CASE(27) SSAR_CASE(29) SSAR_CASE(31)
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (k < 33 || k % 2 != 1) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_generic(x, y, k, n_lines, L, lines_per_batch, batch_stride, line_stride,
+                                             pos_stride, s));
   }
 #undef SSAR_CASE
 }

@@ -245,14 +245,111 @@ cudaError_t launch(const float* x, const float* out, const float* g, float* gx, 
   return cudaGetLastError();
 }
 
+// ---- the generic path: odd K > 31, K a run-time argument ----------------------
+//
+// The forward's generic path has its gradient here, as simple: one thread an
+// input, reading device memory (through L1).  What lands on a padded position
+// q is found as landed_on above does, taps ascending, with each output's
+// selected tap searched again (K^2 compares an input); then the same fold of
+// the reflect halo in the same order, so it too agrees with the plain
+// version bit for bit.
+
+template <bool CONTIG>
+struct GenericLine {
+  const float *x, *out, *g;
+  long long base, pos_stride;
+  int K, L;
+
+  __device__ __forceinline__ long long at(int t) const { return offset_on_line<CONTIG>(base, t, pos_stride); }
+
+  // the first tap of output t's window equal to out[t], K if none
+  __device__ __forceinline__ int selected(int t) const {
+    const float m = out[at(t)];
+    for (int i = 0; i < K; ++i)
+      if (x[at(reflect_index(t - K / 2 + i, L))] == m) return i;
+    return K;
+  }
+
+  // what landed on the padded position q (0 .. L + 2p - 1), taps ascending
+  __device__ __forceinline__ float landed_on(int q) const {
+    float h = 0.f;
+    for (int i = 0; i < K; ++i) {
+      const int t = q - i;
+      if (t < 0) break;
+      if (t < L && selected(t) == i) h += g[at(t)];
+    }
+    return h;
+  }
+
+  // fold_side above, for this line
+  __device__ __forceinline__ float fold_side(float acc, int e, int first, int step) const {
+    const int p = K / 2;
+    if (L == 1) {
+      for (int d = 1; d <= p; ++d) acc += landed_on(first + step * (d - 1));
+      return acc;
+    }
+    const int m = 2 * (L - 1);
+    for (int base_d = 0;; base_d += m) {
+      const int d1 = base_d + e;
+      if (d1 > p) break;
+      if (e != 0) acc += landed_on(first + step * (d1 - 1));
+      const int d2 = base_d + m - e;
+      if (d2 > p) break;
+      if (2 * e != m) acc += landed_on(first + step * (d2 - 1));
+    }
+    return acc;
+  }
+};
+
+template <bool CONTIG>
+__global__ void __launch_bounds__(kThreads)
+sliding_median_bwd_generic_kernel(const float* __restrict__ x, const float* __restrict__ out,
+                                  const float* __restrict__ g, float* __restrict__ gx, int K, long long n_lines,
+                                  int L, long long lines_per_batch, long long batch_stride, long long line_stride,
+                                  long long pos_stride) {
+  const long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= n_lines * L) return;
+  long long line;
+  int j;
+  generic_item<CONTIG>(idx, L, lines_per_batch, &line, &j);
+  const GenericLine<CONTIG> ln{x, out, g, line_offset(line, n_lines, lines_per_batch, batch_stride, line_stride),
+                               pos_stride, K, L};
+  const int p = K / 2;
+  float acc = ln.landed_on(j + p);
+  if (j <= p || L - 1 - j <= p) {
+    acc = ln.fold_side(acc, j, p - 1, -1);
+    acc = ln.fold_side(acc, L - 1 - j, p + L, +1);
+  }
+  gx[ln.at(j)] = acc;
+}
+
+cudaError_t launch_generic(const float* x, const float* out, const float* g, float* gx, int k, long long n_lines,
+                           int L, long long lines_per_batch, long long batch_stride, long long line_stride,
+                           long long pos_stride, cudaStream_t stream) {
+  const long long n_blocks = (n_lines * L + kThreads - 1) / kThreads;
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const unsigned blocks = static_cast<unsigned>(n_blocks);
+  if (pos_stride == 1) {
+    auto kernel = sliding_median_bwd_generic_kernel<true>;
+    SSAR_LAUNCH(kernel, blocks, kThreads, stream, x, out, g, gx, k, n_lines, L, lines_per_batch, batch_stride,
+                line_stride, pos_stride);
+  } else {
+    auto kernel = sliding_median_bwd_generic_kernel<false>;
+    SSAR_LAUNCH(kernel, blocks, kThreads, stream, x, out, g, gx, k, n_lines, L, lines_per_batch, batch_stride,
+                line_stride, pos_stride);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes).  x, out, g and gx share one
 // layout: line r starts at (r / lines_per_batch) * batch_stride +
 // (r % lines_per_batch) * line_stride and steps by pos_stride (in elements);
 // every L >= 1 is taken.  Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for a
-// window width without an instantiation or an empty tensor).
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// even or negative window width or an empty tensor).  Odd widths above 31
+// take the generic kernel.
 extern "C" int ssar_sliding_median_bwd_f32(const float* x, const float* out, const float* g, float* gx,
                                            int k, long long n_lines, int L, long long lines_per_batch,
                                            long long batch_stride, long long line_stride,
@@ -265,7 +362,10 @@ extern "C" int ssar_sliding_median_bwd_f32(const float* x, const float* out, con
     SSAR_CASE(1) SSAR_CASE(3) SSAR_CASE(5) SSAR_CASE(7) SSAR_CASE(9) SSAR_CASE(11) SSAR_CASE(13)
     SSAR_CASE(15) SSAR_CASE(17) SSAR_CASE(19) SSAR_CASE(21) SSAR_CASE(23) SSAR_CASE(25)
     SSAR_CASE(27) SSAR_CASE(29) SSAR_CASE(31)
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (k < 33 || k % 2 != 1) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_generic(x, out, g, gx, k, n_lines, L, lines_per_batch, batch_stride,
+                                             line_stride, pos_stride, s));
   }
 #undef SSAR_CASE
 }

@@ -10,8 +10,9 @@ card), demodulation accumulates in float32, parameters are float32.
 Parameters are a plain dict of tensors in torch layout: conv weights
 (out, in, kh, kw), linear weights (out, in), ``const`` (C, 4, 4).
 ``params_from_jax`` converts the JAX package's pytree ((kh, kw, in, out)
-convs, (in, out) linears, (4, 4, C) const).  The public functions keep the
-JAX package's layouts: noises (B, H, W, 1), images (B, R, R, 3).
+convs, (in, out) linears, (4, 4, C) const), ``params_to_jax`` back.  The
+public functions keep the JAX package's layouts for noises (B, H, W, 1) and
+images (B, R, R, 3); bends and returned features are NCHW.
 """
 from __future__ import annotations
 
@@ -133,6 +134,33 @@ def params_from_jax(tree, device=None) -> dict:
     }
 
 
+def params_to_jax(params: dict) -> dict:
+    """The port's parameters in the JAX package's layout, as numpy float32
+    (the inverse of ``params_from_jax``)."""
+
+    def a(t):
+        return t.detach().cpu().float().numpy()
+
+    def lin(p):
+        return {"weight": a(p["weight"]).T, "bias": a(p["bias"])}
+
+    def conv(p):
+        out = {"weight": a(p["weight"]).transpose(2, 3, 1, 0), "mod": lin(p["mod"]), "bias": a(p["bias"])}
+        if "noise_weight" in p:
+            out["noise_weight"] = a(p["noise_weight"])
+        return out
+
+    return {
+        "mapping": [lin(p) for p in params["mapping"]],
+        "const": a(params["const"]).transpose(1, 2, 0),
+        "conv1": conv(params["conv1"]),
+        "to_rgb1": conv(params["to_rgb1"]),
+        "convs": [conv(p) for p in params["convs"]],
+        "to_rgbs": [conv(p) for p in params["to_rgbs"]],
+        "w_avg": a(params["w_avg"]),
+    }
+
+
 # --------------------------------------------------------------- mapping --
 def equal_linear(p: dict, x: torch.Tensor, lr_mul: float = 1.0, activation: bool = False) -> torch.Tensor:
     scale = (1.0 / np.sqrt(p["weight"].shape[1])) * lr_mul
@@ -224,24 +252,43 @@ def to_rgb(p: dict, prep: dict, x: torch.Tensor, w: torch.Tensor, skip: torch.Te
 
 
 def synthesis(params: dict, latents: torch.Tensor, noises: list | None, config: StyleGAN2Config, *,
-              dtype=torch.float32, output_size: int | None = None, prep: dict | None = None) -> torch.Tensor:
+              dtype=torch.float32, output_size: int | None = None, prep: dict | None = None,
+              return_features: bool = False, bends: dict | None = None, bend_mods: dict | None = None):
     """W+ latents (B, n_latent, 512) [+ noises, a list of (B, H, W, 1) or None]
     -> images (B, R, R, 3) float32 in [-1, 1] (unclamped).
 
     ``output_size`` below the native resolution stops at the matching skip
     branch (every intermediate skip is a valid image).  ``prep`` comes from
     ``prepare_synthesis`` with the same dtype; it is built here when omitted.
+
+    ``bends`` maps a feature level (0: the 4 x 4 block, after ``conv1``; 1:
+    8 x 8, after that level's second conv; ...) to a transform of that level's
+    activations, applied before its ``to_rgb`` (the network-bending hook).
+    Unlike the JAX package's NHWC, activations are the port's NCHW
+    (B, C, H, W).  A transform is called ``transform(x, mod)`` when
+    ``bend_mods`` has an entry for its level (this batch's slice of a
+    per-frame modulation), else ``transform(x)``.  A bend may change the
+    spatial shape; the caller then passes matching noises or None.  With
+    ``return_features`` the activations of each level after its bend, NCHW
+    in the synthesis dtype, come back too: ``(images, features)``.
     """
     if prep is None:
         prep = prepare_synthesis(params, config, dtype)
     if noises is None:
         noises = [None] * config.num_layers
     noises = [None if n is None else n.permute(0, 3, 1, 2) for n in noises]  # NHWC -> NCHW views
+    bends, bend_mods = bends or {}, bend_mods or {}
     B = latents.shape[0]
+
+    def bend(level, x):
+        if level not in bends:
+            return x
+        return bends[level](x, bend_mods[level]) if level in bend_mods else bends[level](x)
 
     const = params["const"].to(dtype)
     x = const[None].expand(B, *const.shape)
-    x = styled_conv(params["conv1"], prep["conv1"], x, latents[:, 0], noises[0], dtype=dtype)
+    x = bend(0, styled_conv(params["conv1"], prep["conv1"], x, latents[:, 0], noises[0], dtype=dtype))
+    feats = [x] if return_features else None   # kept only when asked: each level's activations stay alive
     skip = to_rgb(params["to_rgb1"], prep["to_rgb1"], x, latents[:, 1], dtype=dtype)
 
     if output_size is None or output_size > 4:
@@ -252,10 +299,23 @@ def synthesis(params: dict, latents: torch.Tensor, noises: list | None, config: 
                             blur_kernel=config.blur_kernel, dtype=dtype)
             x = styled_conv(conv, prep["convs"][2 * level + 1], x, latents[:, i + 1], noises[i + 1],
                             dtype=dtype)
+            x = bend(level + 1, x)
+            if return_features:
+                feats.append(x)
             skip = to_rgb(params["to_rgbs"][level], prep["to_rgbs"][level], x, latents[:, i + 2], skip,
                           dtype=dtype)
             i += 2
             if output_size is not None and res >= output_size:
                 break
-    return skip.float().permute(0, 2, 3, 1)
+    img = skip.float().permute(0, 2, 3, 1)
+    return (img, feats) if return_features else img
 
+
+def generate(params: dict, z: torch.Tensor, config: StyleGAN2Config, *, truncation: float = 1.0,
+             noises: list | None = None, dtype=torch.float32) -> torch.Tensor:
+    """z (B, 512) -> images: mapping, truncation towards ``w_avg``, broadcast
+    to W+ and synthesis."""
+    w = mapping(params, z, config)
+    if truncation < 1.0:
+        w = params["w_avg"] + truncation * (w - params["w_avg"])
+    return synthesis(params, w_to_wplus(w, config), noises, config, dtype=dtype)

@@ -1,10 +1,11 @@
 """Serve path: audio + reactor -> music video.
 
-Counterpart of ``audio2video`` / ``_audio2video`` in
+Counterpart of ``audio2video`` / ``_audio2video`` / ``latent2video`` in
 ``ssar_tpu/generate/audio2video.py``: features -> reactor -> (latents, noise
 pyramid) -> batched StyleGAN2 render -> frame writer, with the reference's
 noise duplication (noise0, then each pyramid level twice) and optional
-residual re-centring around a seeded mapper latent.
+residual re-centring around a seeded mapper latent; or a saved latent
+sequence re-centred around one.
 """
 from __future__ import annotations
 
@@ -64,6 +65,40 @@ def render_reaction(latents: torch.Tensor, noise: list, out_file: str | None = N
                                    fps=fps, output_size=output_size, batch_size=batch_size,
                                    audio_file=audio_file, audio_offset=offset, audio_duration=duration,
                                    writer=writer)
+
+
+def latent2video(audio_file: str | None, latent_file: str, out_file: str | None = None,
+                 model_file: str | None = None, output_size=(1024, 1024), fps: int = 24, batch_size: int = 8,
+                 offset: float = 0, duration: float | None = None, seed: int = 123, gan_config=None,
+                 device: str | torch.device | None = None, writer=None):
+    """Render a saved latent sequence (.npy, (T, n_ws, 512)) to video: the
+    sequence is re-centred as a residual around the mapper's latent of a
+    seeded z, and sibling ``" - Noise {4,8,16,32}.npy"`` pyramids are picked
+    up when all four are present.  Returns the writer."""
+    device = resolve_device(device)
+    latents = torch.as_tensor(np.load(latent_file), dtype=torch.float32)
+    start = int(fps * offset)
+    end = int(fps * (offset + duration)) if duration is not None else latents.shape[0]
+    latents = latents[start:end].to(device)
+    residuals = latents - latents.mean(dim=(0, 1))
+
+    noise = []
+    for s in (4, 8, 16, 32):
+        try:
+            n = np.load(latent_file.replace(".npy", f" - Noise {s}.npy"))[start:end]
+        except FileNotFoundError:
+            noise = []
+            break
+        noise.append(np.asarray(n, np.float32).reshape(n.shape[0], 1, s, s))
+
+    mapper = StyleGAN2Mapper(model_file=model_file, config=gan_config, device=device)
+    base = mapper(np.random.RandomState(seed).randn(1, 512).astype(np.float32))[0]
+    synthesizer = StyleGAN2Synthesizer(model_file=model_file, output_size=output_size, config=gan_config,
+                                       device=device)
+    dup = duplicate_pyramid(noise)[: synthesizer.n_noises_used] if noise else None
+    return render_latents_to_video(synthesizer, base + residuals, dup, out_file, fps=fps, output_size=output_size,
+                                   batch_size=batch_size, audio_file=audio_file, audio_offset=offset,
+                                   audio_duration=duration, writer=writer)
 
 
 def audio2video(model, audio_file: str | None, out_file: str | None = None, model_file: str | None = None,

@@ -23,7 +23,7 @@ class MultiLayerRNN(nn.Module):
     def __init__(self, features: int, num_layers: int = 4, cell: str = "gru", dropout: float = 0.0):
         super().__init__()
         if cell != "gru":
-            raise NotImplementedError(f"only the GRU cell is ported, got cell={cell!r} (ROADMAP A3)")
+            raise NotImplementedError(f"only the GRU cell is ported, got cell={cell!r} (the LSTM cell is not ported yet)")
         self.layers = nn.ModuleList(nn.GRU(features, features, batch_first=True) for _ in range(num_layers))
         self.dropout = dropout
 
@@ -79,7 +79,7 @@ def make_backbone(name: str, features: int, num_layers: int, dropout: float = 0.
     """(module, flax name) of the backbone `name`."""
     name = name.lower()
     if name in UNPORTED:
-        raise NotImplementedError(f"backbone {name!r} is not ported yet (ROADMAP A3)")
+        raise NotImplementedError(f"backbone {name!r} is not ported yet: only 'gru' and 'sashimi' are")
     if name not in BACKBONES:
         raise ValueError(f"unknown backbone {name!r}")
     make, flax_name = BACKBONES[name]

@@ -176,7 +176,7 @@ class LearnedLatentNoiseDecoder(FlaxModule):
                  dropout: float = 0.0, noise_mode: str = "musigma"):
         super().__init__()
         if noise_mode != "musigma":
-            raise NotImplementedError(f"noise_mode={noise_mode!r} is not ported yet (ROADMAP A3)")
+            raise NotImplementedError(f"noise_mode={noise_mode!r} is not ported yet: the learned decoder takes 'musigma' only (the conv3d noise upsampler is missing)")
         self.layerwise = LayerwiseLinear(in_features, 512, n_ws, n_latent_split, dropout)
         self.noise_head = NoiseHead(in_features, n_noise, dropout)
         self.dropout = dropout

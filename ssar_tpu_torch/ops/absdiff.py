@@ -6,8 +6,9 @@ Counterpart of ``ssar_tpu/ops/absdiff.py``: for ``x`` of shape (T, ...),
 written out (the JAX trainer's ``vmap``) and makes one launch per batch.
 
 On a CUDA tensor the forward runs the hand-written kernel
-(``absdiff_cuda.py``, ``csrc/absdiff.cu``) and raises on a build or launch
-failure; on a CPU tensor it runs the plain version.  The backward is the JAX
+(``absdiff_cuda.py``, ``csrc/absdiff.cu``; another floating dtype than
+float32 makes a float32 round trip) and raises on a build or launch failure;
+on a CPU tensor it runs the plain version in the input's dtype.  The backward is the JAX
 package's analytic sign-based one (plain there too), in plain torch.
 """
 from __future__ import annotations
@@ -57,7 +58,7 @@ class _BatchAbsdiff(torch.autograd.Function):
 
 
 def batch_absdiff(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable (B, T, ...) float32 -> (B, T)."""
+    """Differentiable (B, T, ...) -> (B, T), in the input's floating dtype."""
     if x.ndim < 2 or x.shape[1] < 2:
         raise ValueError(f"batch_absdiff takes (B, T >= 2, ...), got {tuple(x.shape)}")
     if not (x.is_cuda or x.device.type == "cpu"):
@@ -66,5 +67,5 @@ def batch_absdiff(x: torch.Tensor) -> torch.Tensor:
 
 
 def absdiff(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable (T, ...) float32 -> (T,)."""
+    """Differentiable (T, ...) -> (T,), in the input's floating dtype."""
     return batch_absdiff(x[None])[0]

@@ -2,14 +2,23 @@
 7- and 9-tap ones), differentiable.
 
 Counterpart of ``ssar_tpu/ops/median.py`` and of the custom VJP in
-``ssar_tpu/ops/median_pallas.py``.  ``median_filter`` always goes through one
-``torch.autograd.Function``.  On a CUDA tensor its forward and its backward
-run the hand-written kernels (``median_cuda.py``, ``csrc/sliding_median.cu``,
-``csrc/sliding_median_bwd.cu``) for every odd width up to 31 along the last
-axis or the one before it; a build or launch failure raises.  On a CPU tensor
-they run the plain versions below.  The gradient rule is one on both devices:
-each output cotangent goes to the first window tap equal to the median, and
-the reflect halo folds back onto the interior.
+``ssar_tpu/ops/median_pallas.py``.  With ``mode="reflect"`` (every
+caller's) ``median_filter`` goes through one ``torch.autograd.Function``.  On
+a CUDA tensor its forward and its backward run the hand-written kernels
+(``median_cuda.py``, ``csrc/sliding_median.cu``,
+``csrc/sliding_median_bwd.cu``) for every odd width along the last axis or
+the one before it; a build or launch failure raises.  On a CPU tensor they
+run the plain versions below.  The gradient rule is one on both devices: each
+output cotangent goes to the first window tap equal to the median, and the
+reflect halo folds back onto the interior.  The kernels compute in float32:
+float16 and bfloat16 make an exact float32 round trip on both devices (a
+median selects), and float64 one on the card (as JAX computes it with x64
+off).
+
+The other padding modes never reach the reference's kernel either
+(``ssar_tpu/ops/median.py``: pad, then a median over the stacked windows), so
+their counterpart is the same pad-and-window median in plain PyTorch on both
+devices, differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -95,18 +104,56 @@ class _SlidingMedian(torch.autograd.Function):
         return sliding_median_bwd_plain(x, out, g, ctx.k, ctx.axis), None, None
 
 
+PAD_MODES = ("reflect", "constant", "edge", "symmetric", "wrap")
+
+
+def pad_indices(L: int, p: int, mode: str, device=None) -> torch.Tensor:
+    """The line positions that the positions -p .. L + p - 1 of a line of
+    length L padded in ``mode`` take (``np.pad``'s index maps; any p):
+    "edge" repeats the end samples, "symmetric" reflects with the edge
+    sample repeated, "wrap" is periodic.  ("reflect" is ``reflect_indices``;
+    "constant" pads zeros and is no index map.)"""
+    q = torch.arange(-p, L + p, device=device)
+    if mode == "edge":
+        return q.clamp(0, L - 1)
+    if mode == "wrap":
+        return q.remainder(L)
+    if mode == "symmetric":
+        r = q.remainder(2 * L)
+        return torch.where(r < L, r, 2 * L - 1 - r)
+    raise ValueError(f"no index map for mode {mode!r}")
+
+
+def median_filter_padded(x: torch.Tensor, k: int, axis: int, mode: str) -> torch.Tensor:
+    """The reference's path for every mode: pad `axis` by k // 2 in `mode`,
+    then the median of each window; differentiable by autograd (the gradient
+    goes to the tap ``torch.median`` returns, then back through the pad)."""
+    x = x.movedim(axis, -1)
+    p = k // 2
+    if mode == "constant":
+        padded = torch.nn.functional.pad(x, (p, p))
+    else:
+        padded = x.index_select(-1, pad_indices(x.shape[-1], p, mode, x.device))
+    return padded.unfold(-1, k, 1).median(dim=-1).values.movedim(-1, axis)
+
+
 def median_filter(x: torch.Tensor, k: int, axis: int = -1, mode: str = "reflect") -> torch.Tensor:
-    """Sliding-window median of odd width `k` along `axis`, reflect padded
-    (the edge sample is not repeated; an axis shorter than the pad keeps
-    reflecting, see ``reflect_indices``).  Exact, a window holding a NaN gives
-    NaN, and differentiable by the first-equal-tap rule."""
-    if k % 2 != 1:
-        raise ValueError("median_filter expects an odd window size")
-    if mode != "reflect":
-        raise ValueError(f"median_filter supports mode='reflect' only, got {mode!r}")
+    """Sliding-window median of odd width `k` along `axis`, padded in `mode`
+    (one of ``PAD_MODES``).  "reflect" does not repeat the edge sample, and an
+    axis shorter than the pad keeps reflecting (``reflect_indices``): it runs
+    the kernels on the card, is exact, and is differentiable by the
+    first-equal-tap rule.  A window holding a NaN gives NaN."""
+    if k % 2 != 1 or k < 1:
+        raise ValueError(f"median_filter expects an odd window size, got {k}")
+    if mode not in PAD_MODES:
+        raise ValueError(f"median_filter takes mode in {PAD_MODES}, got {mode!r}")
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"median_filter runs on CUDA or CPU tensors, got {x.device}")
     axis = axis % x.ndim
+    if mode != "reflect":
+        return median_filter_padded(x, k, axis, mode)
+    if x.dtype != torch.float32 and (x.is_cuda or x.dtype in (torch.float16, torch.bfloat16)):
+        return median_filter(x.float(), k, axis).to(x.dtype)
     if axis >= x.ndim - 2:
         return _SlidingMedian.apply(x, k, axis)
     return _SlidingMedian.apply(x.movedim(axis, -1), k, x.ndim - 1).movedim(-1, axis)

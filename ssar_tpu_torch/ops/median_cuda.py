@@ -5,8 +5,12 @@ Replace the TPU kernel ``ssar_tpu/ops/median_pallas.py``
 (``_median_kernel`` / ``sliding_median_lastaxis``) and its VJP
 (``_sliding_median_bwd``).  Each wrapper checks device, dtype and shape,
 allocates the output, launches on PyTorch's current stream and raises if the
-launch is refused.  ``launches`` and ``bwd_launches`` count the launches made
-through them.
+launch is refused.  Widths up to ``MAX_K`` run the sources' templated
+kernels; a wider odd width runs their generic kernels (k a run-time argument,
+one thread an output or an input: the Pallas kernel takes any odd k).
+``launches`` and ``bwd_launches`` count the templated kernels' launches made
+through them, ``generic_launches`` and ``generic_bwd_launches`` the generic
+ones'.
 
 The optimizer calls these thousands of times on matrices of a few thousand
 elements, where the host's time in the wrapper is several times the kernel's,
@@ -24,10 +28,12 @@ import torch
 
 from . import _build
 
-MAX_K = 31  # widths instantiated in the sources: every odd k in [1, 31]
+MAX_K = 31  # widths instantiated in the sources: every odd k in [1, 31]; wider ones are generic
 
 launches = 0
 bwd_launches = 0
+generic_launches = 0
+generic_bwd_launches = 0
 
 _LAYOUT_ARGS = [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 4
 _fwd_fn = None
@@ -60,8 +66,8 @@ def _check(x: torch.Tensor, k: int, axis: int, who: str) -> int:
         raise ValueError(f"{who} takes a CUDA tensor")
     if x.dtype != torch.float32:
         raise TypeError(f"{who} takes float32, got {x.dtype}")
-    if k % 2 != 1 or not 1 <= k <= MAX_K:
-        raise ValueError(f"window width must be odd and at most {MAX_K}, got {k}")
+    if k % 2 != 1 or k < 1:
+        raise ValueError(f"window width must be odd, got {k}")
     if x.ndim < 1 or x.numel() == 0:
         raise ValueError(f"{who} takes a non-empty tensor, got shape {tuple(x.shape)}")
     axis = axis % x.ndim
@@ -76,7 +82,7 @@ def sliding_median_cuda(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
     length).  A window holding a NaN gives NaN.  Leading dimensions are a
     batch.  The axis before the last is filtered in place of its strides (no
     transpose copy)."""
-    global launches
+    global launches, generic_launches
     axis = _check(x, k, axis, "sliding_median_cuda")
     if _fwd_fn is None:
         _resolve()
@@ -86,7 +92,10 @@ def sliding_median_cuda(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
     err = _build.launch(_fwd_fn, x.device, x.data_ptr(), y.data_ptr(), k, *line_layout(x.shape, axis))
     if err != 0:
         raise RuntimeError(f"sliding_median kernel launch failed: cudaError {err}")
-    launches += 1
+    if k > MAX_K:
+        generic_launches += 1
+    else:
+        launches += 1
     return y
 
 
@@ -94,7 +103,7 @@ def sliding_median_bwd_cuda(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
     """Gradient of ``sliding_median_cuda(x, k, axis)`` for the output
     cotangent ``g``: each ``g[t]`` goes to the first window tap equal to
     ``out[t]``, the reflect halo folded back.  ``out`` is the forward's result."""
-    global bwd_launches
+    global bwd_launches, generic_bwd_launches
     axis = _check(x, k, axis, "sliding_median_bwd_cuda")
     if out.shape != x.shape or g.shape != x.shape or out.dtype != x.dtype or g.dtype != x.dtype \
             or out.device != x.device or g.device != x.device:
@@ -108,5 +117,8 @@ def sliding_median_bwd_cuda(x: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
                         *line_layout(x.shape, axis))
     if err != 0:
         raise RuntimeError(f"sliding_median_bwd kernel launch failed: cudaError {err}")
-    bwd_launches += 1
+    if k > MAX_K:
+        generic_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return gx

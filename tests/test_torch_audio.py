@@ -116,6 +116,58 @@ def test_named_features_match_jax(name, rtol):
     _close(got, want, rtol)
 
 
+# -------------------------------------- the reference's signatures (C1) --
+@pytest.mark.parametrize("name,rtol", [("chromagram", 1e-3), ("tonnetz", 1e-3), ("mfcc", 1e-4),
+                                       ("spectral_contrast", 1e-3), ("spectral_flatness", 1e-5), ("rms", 1e-5),
+                                       ("drop_strength", 1e-4), ("onsets", 1e-4)])
+def test_named_features_called_as_mir_calls_them(name, rtol):
+    """Every feature of the random-patch system's table
+    (``ssar_tpu/generate/mir.py:AFEATFNS``) called as it calls them,
+    ``fn(audio, sr)``: the same shape as JAX's and the values at the stated
+    rtol of their scale (spectral flatness at 1e-5, (T, 1)).  The track makes
+    the tuning estimate's argmax win by a wide margin."""
+    audio = _two_halves(SR, 3.0)
+    want = np.asarray(getattr(j_feat, name)(jnp.asarray(audio), SR))
+    got = getattr(t_feat, name)(torch.as_tensor(audio), SR)
+    assert tuple(got.shape) == want.shape and want.shape[0] == 72
+    _close(got, want, rtol)
+
+
+def test_fourier_tempogram_takes_sr_positionally():
+    """``fourier_tempogram(env, sr)``: `sr` is not the window length."""
+    env = np.asarray(j_beat.onset_strength(jnp.asarray(_track(SR, 3.0)), SR))
+    want = np.asarray(j_beat.fourier_tempogram(jnp.asarray(env), SR))
+    got = t_beat.fourier_tempogram(torch.as_tensor(env), SR)
+    assert tuple(got.shape) == want.shape == (513, 73)
+    _close(got, want, 1e-4)
+
+
+def test_spectral_contrast_linear_matches_jax():
+    audio = _track(SR, 3.0)
+    want = np.asarray(j_feat.spectral_contrast(jnp.asarray(audio), SR, linear=True))
+    got = t_feat.spectral_contrast(torch.as_tensor(audio), SR, linear=True)
+    assert tuple(got.shape) == want.shape == (72, 7)
+    _close(got, want, 1e-4)
+
+
+def test_cqt_method_reaches_chroma_and_the_stack():
+    """``chromagram`` / ``tonnetz(method="direct")`` and ``audio2features(
+    cqt_method="direct")`` take the grouped-octave CQT in both packages: the
+    chroma at 1e-3 of its scale, the stack within the parity budgets, and
+    the direct stack differs from the recursive one."""
+    audio = _track(SR, 3.0)
+    for fn in ("chromagram", "tonnetz"):
+        want = np.asarray(getattr(j_feat, fn)(jnp.asarray(audio), SR, tuning=0.13, method="direct"))
+        _close(getattr(t_feat, fn)(torch.as_tensor(audio), SR, tuning=0.13, method="direct"), want, 1e-3)
+    want = np.asarray(j_feat.audio2features(jnp.asarray(audio), SR, FPS, tuning=0.13, cqt_method="direct"))
+    got = t_feat.audio2features(audio, SR, FPS, tuning=0.13, cqt_method="direct", device="cpu").numpy()
+    for group, (cols, budget) in t_feat.PARITY_BUDGETS.items():
+        err = np.abs(got[:, cols] - want[:, cols]).max()
+        assert err <= budget, f"{group}: {err:.3g} > {budget}"
+    recursive = t_feat.audio2features(audio, SR, FPS, tuning=0.13, device="cpu").numpy()
+    assert np.abs(recursive[:, 20:38] - got[:, 20:38]).max() > 1e-3
+
+
 def _two_halves(sr, seconds):
     """A quiet-noise 220 Hz half and a noisy 330 Hz half with a click every
     half second: the tuning histogram's top bin holds about twice the next

@@ -10,7 +10,8 @@ compared exactly: it selects one of the window's elements, a window holding a
 NaN gives NaN in both (NaNs in the same places), and a line no longer than
 k // 2 keeps reflecting in both.  Its backward is
 compared exactly too: the kernel gathers each input's cotangents in the order
-the plain version adds them, and two launches give the same bits.  absdiff at rtol
+the plain version adds them, and two launches give the same bits; the
+generic kernels for odd k > 31 are held the same way.  absdiff at rtol
 1e-5 (float32 sums of positive terms in another order) and bit for bit
 between two launches; the S4D Vandermonde kernel and its backward at rtol
 1e-4 with an atol of 1e-5 of the largest magnitude (exp / sin / cos of the
@@ -154,11 +155,43 @@ def test_median_cuda_other_axis_and_errors(cuda_device):
     x = torch.rand(6, 5, 40, device=cuda_device)
     assert torch.equal(median_filter(x, 3, 0), median_filter_plain(x, 3, 0))
     with pytest.raises(ValueError):
-        median_filter(torch.rand(4, 40, device=cuda_device), 33)   # no instantiation above 31
+        median_filter(torch.rand(4, 40, device=cuda_device), 34)   # even widths have no median tap
     short = torch.rand(4, 10, device=cuda_device)                  # a pad of 15 on lines of 10 keeps reflecting
     assert torch.equal(median_filter(short, 31), median_filter_plain(short, 31))
-    with pytest.raises(TypeError):
-        median_filter(torch.rand(4, 40, device=cuda_device, dtype=torch.float64), 7)
+    wide = torch.rand(4, 40, device=cuda_device, dtype=torch.float64)  # float64 runs the kernel in float32
+    assert torch.equal(median_filter(wide, 7), median_filter_plain(wide.float(), 7).double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape,k", [((67, 131), 33), ((40, 100), 63), ((2, 30, 50), 33), ((5, 9), 33)])
+def test_median_cuda_generic_width(cuda_device, shape, k, ties):
+    """The generic kernels (odd k > 31) on both axes and in both directions,
+    bit for bit, counted apart from the templated kernels."""
+    from ssar_tpu_torch.ops import median_cuda
+
+    gen = torch.Generator().manual_seed(k)
+    x = torch.randn(shape, generator=gen)
+    if ties:
+        x = torch.round(x * 2) / 2
+    before = (median_cuda.launches, median_cuda.generic_launches, median_cuda.generic_bwd_launches)
+    _check_both_directions(x.to(cuda_device), torch.randn(shape, generator=gen).to(cuda_device), k)
+    after = (median_cuda.launches, median_cuda.generic_launches, median_cuda.generic_bwd_launches)
+    assert after[0] == before[0] and after[1] > before[1] and after[2] > before[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_median_cuda_half_dtypes(cuda_device, dtype):
+    """Half dtypes make an exact float32 round trip through the kernels."""
+    from ssar_tpu_torch.ops import median_cuda
+
+    x = torch.randn(64, 300, generator=torch.Generator().manual_seed(2)).to(cuda_device, dtype)
+    before = median_cuda.launches
+    for axis in (-1, -2):
+        got = median_filter(x, 31, axis)
+        assert got.dtype == dtype and torch.equal(got, median_filter_plain(x.float(), 31, axis).to(dtype))
+    assert median_cuda.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -174,7 +207,21 @@ def test_absdiff_cuda_kernel_matches_plain(cuda_device, shape):
     torch.testing.assert_close(got, batch_absdiff_plain(x), rtol=1e-5, atol=0)
     assert torch.equal(got, again)
     with pytest.raises(TypeError):
-        absdiff_cuda.batch_absdiff_cuda(x.double())
+        absdiff_cuda.batch_absdiff_cuda(x.int())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float64])
+def test_absdiff_cuda_other_dtypes(cuda_device, dtype):
+    """Another floating dtype goes through the kernel in float32 and comes back
+    in its own dtype: equal to the float32 kernel's result cast."""
+    from ssar_tpu_torch.ops import absdiff_cuda
+
+    x = torch.randn(4, 192, 1024, generator=torch.Generator().manual_seed(3)).to(cuda_device, dtype)
+    before = absdiff_cuda.launches
+    got = batch_absdiff(x)
+    assert absdiff_cuda.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, absdiff_cuda.batch_absdiff_cuda(x.float()).to(dtype))
 
 
 def _s4d_inputs(H: int, N: int, device):

@@ -4,7 +4,8 @@
 C++ with ``-DSSAR_HOST_EMULATION`` (``csrc/host_emulation.h``: one host thread
 per CUDA thread, block after block), so their index arithmetic (tiles, halo,
 reflection on short lines, strides of both layouts), the shared sorting
-network, the NaN rule and the gather's order of adds are held against
+network, the generic path for k > 31, the NaN rule and the gather's order of
+adds are held against
 ``ops/median.py``'s plain versions bit for bit where there is no card.  The
 shapes are small: a block is 256 host threads.  Whether nvcc accepts the
 sources, and how fast they are, only the card can say (``chip_smoke.py``,
@@ -125,8 +126,24 @@ def test_emulated_forward_every_width(forward, backward, k):
     assert torch.equal(_run_forward(forward, xt, k, -2), want.t())
 
 
+# the generic path (k > 31): lines long and short, both layouts, a batch
+GENERIC = [((5, 70), 33), ((3, 40), 63), ((2, 4, 37), 33), ((6, 20), 63), ((1, 1), 33)]
+
+
+@pytest.mark.parametrize("kind", ["distinct", "ties", "nan"])
+@pytest.mark.parametrize("shape,k", GENERIC)
+def test_emulated_generic_kernels_match_plain(forward, backward, shape, k, kind):
+    x, g = _case(shape, kind, seed=k + math.prod(shape))
+    for axis in (-1, -2):
+        want = median_filter_plain(x, k, axis)
+        got = _run_forward(forward, x, k, axis)
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+        assert torch.equal(_run_backward(backward, x, want, g, k, axis), sliding_median_bwd_plain(x, want, g, k, axis))
+
+
 def test_emulated_entry_points_refuse_other_widths(forward, backward):
     x = torch.zeros(4, 40)
-    for k in (0, 2, 33):
+    for k in (0, 2, 34, -1):
         assert forward(x.data_ptr(), x.data_ptr(), k, *_layout(x, -1), None) != 0
         assert backward(x.data_ptr(), x.data_ptr(), x.data_ptr(), x.data_ptr(), k, *_layout(x, -1), None) != 0

@@ -214,10 +214,68 @@ def test_segmentation_of_a_clip_with_three_beat_synchronous_frames_matches_jax()
 
 
 def test_median_rejects_other_modes():
-    with pytest.raises(ValueError):
-        median_filter(torch.zeros(4, 9), 3, mode="constant")
+    """Modes outside ``PAD_MODES`` (``np.pad``'s statistics and ramps, which
+    no caller uses) and even widths."""
+    for mode in ("linear_ramp", "maximum", "mean"):
+        with pytest.raises(ValueError):
+            median_filter(torch.zeros(4, 9), 3, mode=mode)
     with pytest.raises(ValueError):
         median_filter(torch.zeros(4, 9), 4)
+
+
+@pytest.mark.parametrize("mode", ["constant", "edge", "symmetric", "wrap", "reflect"])
+@pytest.mark.parametrize("shape,k,axis", [((6, 40), 7, -1), ((30, 5), 9, 0), ((2, 3, 20), 5, 1), ((4, 3), 7, -1)])
+def test_median_modes_match_jax(rng, mode, shape, k, axis):
+    """Every padding mode against the JAX package's pad-and-window median:
+    exact forward; on distinct values (no ties, so every subgradient rule
+    agrees) the gradient within 1e-5 of ``jax.grad`` (the pad's fold adds in
+    another order); lines shorter than the pad included."""
+    x = rng.randn(*shape).astype(np.float32)
+    w = rng.randn(*shape).astype(np.float32)
+    got = median_filter(torch.as_tensor(x), k, axis, mode=mode)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(j_median(jnp.asarray(x), k, axis, mode=mode)))
+    want = jax.grad(lambda a: jnp.sum(j_median(a, k, axis=axis, mode=mode) * w))(jnp.asarray(x))
+    xt = torch.as_tensor(x).requires_grad_()
+    (median_filter(xt, k, axis, mode=mode) * torch.as_tensor(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [33, 63])
+def test_median_wide_windows_match_jax(rng, k):
+    """Odd k > 31 (the generic kernels' widths on the card): exact forward on
+    both axes, and the gradient within 1e-5 of ``jax.grad`` on distinct values
+    (up to 63 contributions an input, added in another order)."""
+    x = rng.randn(40, 70).astype(np.float32)
+    w = rng.randn(40, 70).astype(np.float32)
+    for axis in (0, 1):
+        np.testing.assert_array_equal(median_filter(torch.as_tensor(x), k, axis).numpy(),
+                                      np.asarray(j_median(jnp.asarray(x), k, axis)))
+        want = jax.grad(lambda a: jnp.sum(j_median(a, k, axis=axis) * w))(jnp.asarray(x))
+        xt = torch.as_tensor(x).requires_grad_()
+        (median_filter(xt, k, axis) * torch.as_tensor(w)).sum().backward()
+        np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("mode", ["reflect", "edge"])
+def test_median_half_dtypes_match_jax(rng, dtype, mode):
+    """Half-precision inputs: the same bits as the JAX package's median in
+    that dtype (a selection; the reflect path makes an exact float32 round
+    trip), and a gradient of the input's dtype equal to the float32
+    gradient's cast on distinct values."""
+    x = rng.randn(12, 50).astype(np.float32)
+    xh = torch.as_tensor(x).to(getattr(torch, dtype))
+    xj = jnp.asarray(xh.float().numpy()).astype(getattr(jnp, dtype))
+    for k, axis in ((7, -1), (31, 0), (33, -1)):
+        got = median_filter(xh, k, axis, mode=mode)
+        assert got.dtype == xh.dtype
+        want = np.asarray(j_median(xj, k, axis, mode=mode).astype(jnp.float32))
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    leaf = xh.clone().requires_grad_()
+    (gx,) = torch.autograd.grad(median_filter(leaf, 9, -1, mode=mode), leaf, torch.ones_like(xh))
+    leaf32 = xh.float().requires_grad_()
+    (gx32,) = torch.autograd.grad(median_filter(leaf32, 9, -1, mode=mode), leaf32, torch.ones(12, 50))
+    assert gx.dtype == xh.dtype and torch.equal(gx, gx32.to(xh.dtype))
 
 
 # ----------------------------------------------------------------- filters --
@@ -324,6 +382,21 @@ def test_absdiff_matches_jax_ref_and_pallas_interpret(rng, shape):
     np.testing.assert_allclose(got, np.asarray(j_absdiff.absdiff_ref(jnp.asarray(x))), rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(got, np.asarray(j_absdiff.absdiff_pallas(jnp.asarray(x))), rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(got, t_absdiff.absdiff_plain(torch.as_tensor(x)).numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16", "float32", "float64"])
+def test_absdiff_plain_every_dtype_matches_jax_ref(rng, dtype):
+    """The plain version (the CPU's) keeps the input's dtype, as
+    ``absdiff_ref`` does; held against JAX's in that dtype at two of its
+    epsilons (sums in another order; JAX with x64 off computes float64 in
+    float32)."""
+    x = torch.as_tensor(rng.randn(20, 3, 16).astype(np.float32)).to(getattr(torch, dtype))
+    got = t_absdiff.absdiff(x)
+    assert got.dtype == x.dtype and tuple(got.shape) == (20,)
+    want = np.asarray(j_absdiff.absdiff_ref(jnp.asarray(x.float().numpy()).astype(
+        jnp.float32 if dtype == "float64" else getattr(jnp, dtype))).astype(jnp.float32))
+    eps = float(torch.finfo(getattr(torch, dtype)).eps) if dtype != "float64" else 1e-6
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 * eps, atol=0)
 
 
 def test_batch_absdiff_matches_vmap(rng):

@@ -128,7 +128,7 @@ def test_s4_block_dropout_from_generator(rng):
 
 def test_unported_backbones_raise():
     for name in ("lstm", "conv", "mlp", "transformer"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        with pytest.raises(NotImplementedError, match="is not ported yet"):
             make_backbone(name, 8, 2)
 
 
