@@ -62,7 +62,25 @@ Phases (any failure exits non-zero and prints no result line):
      checked exactly;
   10. reference check: loss and gradient of both configurations at a small
      size on the card and on the CPU from the same initial envelopes, noise
-     draws and palette.
+     draws and palette;
+  11. random-patch path: ``generate.sample.generate`` at the CLI's defaults
+     (1024 px StyleGAN2 with random weights from the seed, bf16,
+     downscale_factor 4 -> 256 x 256, batch 16, 24 fps, seed 42) on a
+     synthetic 60 s track at 44.1 kHz read from a 16-bit wav (load and
+     resample, music information, Patch.forward, the chunked render with
+     lazy noise trees, 1440 I420 frames into the in-memory sink), after an
+     untimed warm-up (one retrieve_music_information on the same track, the
+     noise trees of every chunk timed alone, one rendered chunk); then the
+     same call at downscale_factor 1 (1024 x 1024, all 17 noise layers) on
+     the first 20 s (480 frames); stage seconds, fps, x realtime, the noise
+     banks' bytes and peak memory; the sliding-median launch count read
+     around each call and checked exactly (8: four HPSS);
+  12. reference check at a small size in fp32 (64 px model, 4 s track):
+     retrieve_music_information on the card and on the CPU (features within
+     the docs/PARITY.md budgets, the same tempo, the same labels from the
+     CPU's features, the same CQT labels), and one seed's Patch on both
+     devices with the banks drawn on the CPU (the same JSON, latents, noise
+     windows and frames).
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
@@ -105,6 +123,10 @@ LONG_CHUNK_FRAMES = 1569
 LONG_TUNING_FRAMES = 97
 LONG_WARM_SECONDS = 120   # two chunks of 1440 frames: the timed run's chunk shapes
 LONG_BATCH = 64
+# the random-patch path: a 60 s track at 1024 * FPS, whose centred STFT has 60 * FPS + 1 frames
+PATCH_SECONDS = 60
+PATCH_FRAMES = PATCH_SECONDS * FPS + 1
+PATCH_B1 = 8   # four HPSS a retrieve_music_information, two median filters each
 
 
 def log(*a):
@@ -426,6 +448,10 @@ def main():
     opt_counts = optimize_standalone(dev, track40, n_sync)
     reference_optimize(dev)
 
+    # ---------------------------------------------------------- 11, 12 --
+    patch_counts = patch_path(dev)
+    reference_patch(dev)
+
     main_row = [r for r in rows if r["shape"] == [1025, 193]]  # both axes: one HPSS
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
     ad_path = [r for r in absdiff_rows if r["path"]]
@@ -441,7 +467,7 @@ def main():
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": launches, "max_abs_err": max_err,
         # one HPSS at the main path's shape: the time-axis and the frequency-axis filter of (1025, 193)
         **sums(main_row), "library_ms": None, "launches_optimize": opt_counts["sliding_median"],
-        "launches_longform": long_counts["sliding_median"],
+        "launches_longform": long_counts["sliding_median"], "launches_patch": patch_counts["sliding_median"],
     }, {
         "name": "sliding_median_generic", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": long_counts["sliding_median_generic"],
@@ -695,7 +721,8 @@ def equal_with_nans(got: torch.Tensor, want: torch.Tensor) -> bool:
 def check_median(dev, n_sync: int):
     """B1's forward against its plain version, exactly (a selection): the
     serve path's (1025, 193), the long-form chunks' (1025, 1569) and tuning
-    HPSS's (1025, 97), a 3-minute track's (1025, 4320) on both axes, the
+    HPSS's (1025, 97), the random-patch path's (1025, 1441), a 3-minute
+    track's (1025, 4320) on both axes, the
     optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and awkward
     shapes, short lines, and on each an input holding NaNs (a window with a
     NaN gives NaN in both)."""
@@ -705,7 +732,8 @@ def check_median(dev, n_sync: int):
     n = n_sync
     path = [((2 * n, n), 7), ((n, n), 9)]
     timed = [((1025, 193), 31), ((1025, 192), 31), ((1025, LONG_CHUNK_FRAMES), 31),
-             ((1025, LONG_TUNING_FRAMES), 31), ((1025, 4320), 31), ((4, 1025, 4320), 31)] + path
+             ((1025, LONG_TUNING_FRAMES), 31), ((1025, PATCH_FRAMES), 31), ((1025, 4320), 31),
+             ((4, 1025, 4320), 31)] + path
     checks = timed + [((1000, 100), 31), ((37, 16), 31), ((3, 53, 77), 7), ((53, 77), 9), ((130, 70), 9)] + SHORT_LINES
     max_err, rows, n_nan = 0.0, [], 0
     for shape, k in checks:
@@ -1453,6 +1481,217 @@ def reference_optimize(dev):
             fail(f"reference optimize ({tag}): gradient of c on the card differs by {err:.3g} (largest {scale:.3g})")
         log(f"[reference] optimize {tag} card vs CPU: loss {l_card:.6f} vs {l_cpu:.6f}; gradient error "
             f"{err / scale:.3g} of its largest magnitude")
+
+
+def patch_path(dev) -> dict:
+    """Phase 11: the random-patch CLI's ``generate`` at its defaults on a
+    60 s track read from a wav, after an untimed warm-up; then at 1024 px on
+    its first 20 s.  Returns the sliding-median launch count of the timed
+    60 s call."""
+    from scipy.io import wavfile
+
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2
+    from ssar_tpu_torch.generate import keys, sample
+    from ssar_tpu_torch.generate.mir import retrieve_music_information
+    from ssar_tpu_torch.generate.patch import Patch
+    from ssar_tpu_torch.ops import median_cuda
+
+    out_dir = ROOT / "build" / "chip_smoke_runs" / "patch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    wav = out_dir / "patch_track.wav"
+    track = synthetic_track(44100, PATCH_SECONDS, section_seconds=8)
+    wavfile.write(wav, 44100, np.round(track / np.abs(track).max() * 32000).astype(np.int16))
+    config, seed, batch = StyleGAN2Config(), 42, 16
+
+    # warm-up: the track's music information (cuFFT plans and filter banks at its shapes) with the launch count,
+    # the noise trees of every chunk alone, and one rendered chunk at 256 px
+    audio, sr = sample.load_audio(str(wav), 0, None, FPS, device=dev)
+    median_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    features, segmentations, tempo = retrieve_music_information(audio, sr, device=dev)
+    torch.cuda.synchronize()
+    warm_mir_s, warm_b1 = time.perf_counter() - t0, median_cuda.launches
+    if warm_b1 != PATCH_B1:
+        fail(f"retrieve_music_information launched the sliding median {warm_b1} times, expected {PATCH_B1}")
+    T = features["rms"].shape[0]
+    if T != PATCH_SECONDS * FPS or len(segmentations) != 9 * 6:
+        fail(f"music information: T = {T}, {len(segmentations)} segmentations")
+    G = StyleGAN2(output_size=(256, 256), config=config, seed=seed, device=dev)
+    palette = G.mapper(keys.normal(keys.PRNGKey(seed), (180, 512), device=dev))
+    with torch.no_grad():
+        latents, noise = Patch(features, segmentations, tempo, fps=FPS, seed=seed).forward(palette, downscale_factor=4)
+        noise = noise[4 : 4 + G.synthesizer.n_noises_used]
+        starts = sample.chunk_starts(T, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in starts:
+            windows = [nm(s, batch) for nm in noise]
+        torch.cuda.synchronize()
+        trees_s = time.perf_counter() - t0
+        G.synthesizer(latents[:batch], noises=[w[..., None] for w in windows])
+        torch.cuda.synchronize()
+    del G, palette, latents, noise, windows, features, segmentations
+    log(f"[patch] warm-up: music information of {PATCH_SECONDS} s in {warm_mir_s:.3f} s ({warm_b1} sliding-median "
+        f"launches, tempo {tempo:.1f} BPM); noise trees alone for {len(starts)} chunks of {batch} at 256 px: "
+        f"{trees_s:.3f} s ({trees_s / len(starts) * 1e3:.3f} ms a chunk)")
+
+    counts = {}
+    for downscale, duration, n_frames, shape in ((4, None, PATCH_SECONDS * FPS, (384, 256)),
+                                                 (1, 20.0, 20 * FPS, (1536, 1024))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        median_cuda.launches = 0
+        stats, sink = {}, FrameSink(shape)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(None):
+            out = sample.generate(audio_file=str(wav), seed=seed, fps=FPS, audio_duration=duration,
+                                  downscale_factor=downscale, batch_size=batch, config=config,
+                                  out_dir=str(out_dir), writer=sink, device=dev, stats=stats)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        b1, side = median_cuda.launches, shape[1]
+        if b1 != PATCH_B1:
+            fail(f"random-patch path at {side} px launched the sliding median {b1} times, expected {PATCH_B1}")
+        if len(sink.crcs) != n_frames or stats["frames"] != n_frames:
+            fail(f"random-patch path at {side} px: {len(sink.crcs)} frames written, expected {n_frames}")
+        if len(set(sink.crcs)) < n_frames // 2 or not (16 <= sink.y_range[0] <= sink.y_range[1] <= 235):
+            fail(f"random-patch frames at {side} px: {len(set(sink.crcs))} distinct, luma {sink.y_range}")
+        json_file = Path(out.replace(".mp4", ".json"))
+        if not json_file.exists() or json.loads(json_file.read_text())["seed"] != seed:
+            fail(f"random-patch path at {side} px: no patch JSON beside {out}")
+        seconds = (duration or PATCH_SECONDS)
+        log(f"[patch] generate {seconds:g} s @ 44.1 kHz wav -> {n_frames} I420 frames {side}x{side}, batch {batch}, "
+            f"bf16, downscale_factor {downscale}: " + ", ".join(f"{k} {stats[k]:.3f}" for k in (
+                "load_s", "mir_features_s", "mir_segmentation_s", "model_s", "patch_s", "render_s"))
+            + f"; end to end {total:.3f} s = {n_frames / total:.2f} fps = {seconds / total:.2f}x realtime; render "
+            f"{n_frames / stats['render_s']:.2f} fps; noise banks {stats['bank_bytes'] / 1e6:.1f} MB; peak memory "
+            f"{peak:.2f} GiB; sliding_median launches {b1} (expected {PATCH_B1}); {json_file.name}; "
+            f"frame crc[0] {sink.crcs[0]:08x}")
+        if downscale == 4:
+            counts = {"sliding_median": b1}
+            log(f"[patch] noise trees alone (warm-up) are {trees_s / stats['render_s']:.3f} of this render")
+    return counts
+
+
+def two_part_track(sr: int, seconds: float = 4.0) -> np.ndarray:
+    """A quiet-noise 220 Hz half and a noisy 330 Hz half with a click every
+    half second: the track of tests/test_torch_patch.py, on which the tuning
+    estimate and the hard CQT labels have a wide margin."""
+    t = np.arange(int(sr * seconds)) / sr
+    rng = np.random.RandomState(0)
+    half = seconds / 2
+    audio = (0.4 * np.sin(2 * np.pi * np.cumsum(np.where(t < half, 220.0, 330.0)) / sr)
+             + np.where(t < half, 0.02, 0.15) * rng.randn(len(t))).astype(np.float32)
+    audio[:: sr // 2] += 1.0
+    return audio
+
+
+@contextlib.contextmanager
+def _banks_from_the_cpu():
+    """``keys.normal`` drawing every array on the CPU, then moving it."""
+    from ssar_tpu_torch.generate import keys
+
+    saved = keys.normal
+    keys.normal = lambda key, shape=(), device=None: saved(key, shape).to(device or "cpu")
+    try:
+        yield
+    finally:
+        keys.normal = saved
+
+
+def reference_patch(dev):
+    """Phase 12: the random-patch system at a small size on the card and on
+    the CPU (fp32, 64 px model, 4 s at 12 fps).  Music information: each
+    feature within its docs/PARITY.md budget, the same tempo and CQT labels,
+    and the same labels when the card segments the CPU's features.  One
+    seed's Patch with the banks drawn on the CPU on both devices, from the
+    CPU's music information: the same JSON, latents and every layer's noise
+    windows within 1e-4, frames within 1e-3."""
+    from ssar_tpu_torch.audio.features import PARITY_BUDGETS
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Mapper, StyleGAN2Synthesizer
+    from ssar_tpu_torch.generate import mir
+    from ssar_tpu_torch.generate.patch import Patch
+    from ssar_tpu_torch.utils.device import full_precision
+
+    fps, ks = 12, (2, 4)
+    sr = 1024 * fps
+    audio = two_part_track(sr)
+    group = {"chromagram": "chroma", "tonnetz": "tonnetz", "mfcc": "mfcc", "spectral_contrast": "contrast",
+             "spectral_flatness": "flatness", "rms": "rms", "drop_strength": "drop_strength", "onsets": "onsets"}
+    card = mir.retrieve_music_information(audio, sr, ks=ks, device=dev)
+    cpu = mir.retrieve_music_information(audio, sr, ks=ks, device="cpu")
+    if card[2] != cpu[2]:
+        fail(f"music information: tempo on the card {card[2]} != CPU {cpu[2]}")
+    worst = {}
+    for name, f in cpu[0].items():
+        budget = PARITY_BUDGETS[group[name]][1] if name in group else 1e-3
+        worst[name] = float((card[0][name].cpu() - f).abs().max())
+        if worst[name] > budget:
+            fail(f"music information: {name} card vs CPU deviates by {worst[name]:.3g} > {budget}")
+    for k in ks:
+        if not torch.equal(card[1][("rosa", k)].cpu(), cpu[1][("rosa", k)]):
+            fail(f"music information: CQT labels (k = {k}) differ between the card and the CPU")
+
+    # the card's host segmentation, tempo and post-processing of the CPU's raw features
+    with torch.no_grad(), full_precision():
+        raw = {fn.__name__: fn(torch.as_tensor(audio), sr) for fn in mir.AFEATFNS}
+
+    def fed_feature(name):
+        def fn(a, s):
+            return raw[name].to(a.device)
+        fn.__name__ = name
+        return fn
+
+    saved = mir.AFEATFNS
+    mir.AFEATFNS = [fed_feature(name) for name in raw]
+    try:
+        fed = mir.retrieve_music_information(audio, sr, ks=ks, include_rosa=False, device=dev)
+    finally:
+        mir.AFEATFNS = saved
+    for key, labels in fed[1].items():
+        if not torch.equal(labels.cpu(), cpu[1][key]):
+            fail(f"music information: labels of {key} from the CPU's features differ on the card")
+
+    cfg = StyleGAN2Config(resolution=64)
+    mapper = StyleGAN2Mapper(config=cfg, seed=SEED, device="cpu")
+    palette = mapper(torch.randn(24, 512, generator=torch.Generator().manual_seed(SEED)))
+    syn_cpu = StyleGAN2Synthesizer(config=cfg, dtype=torch.float32, device="cpu", params=mapper.params)
+    syn_card = StyleGAN2Synthesizer(config=cfg, dtype=torch.float32, device=dev, params=_to(mapper.params, dev))
+    feats, segs, tempo = cpu
+    out, jsons = {}, []
+    with _banks_from_the_cpu(), full_precision(), torch.no_grad():
+        for device in (dev, torch.device("cpu")):
+            patch = Patch(_to(feats, device), {k: v.to(device) for k, v in segs.items()}, tempo, fps=fps, seed=7)
+            path = ROOT / "build" / "chip_smoke_runs" / f"patch_{device.type}.json"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            patch.save(str(path))
+            jsons.append(path.read_text())
+            # banks of a 1024 px model's layers at 1/4, as sample.generate renders 256 px from one: layers
+            # 4 .. 12 then have the 64 px model's noise sizes
+            latents, noise = patch.forward(palette.to(device), downscale_factor=4)
+            T = latents.shape[0]
+            windows = [[nm(i, 4).cpu() for i in (0, T - 2)] for nm in noise]
+            syn = syn_card if device.type == "cuda" else syn_cpu
+            frames = syn(latents[:4], noises=[nm(0, 4)[..., None] for nm in noise[4 : 4 + syn.n_noises_used]]).cpu()
+            out[device.type] = (latents.cpu(), windows, frames)
+    if jsons[0] != jsons[1]:
+        fail("patch JSON differs between the card and the CPU")
+    (lat_a, win_a, img_a), (lat_b, win_b, img_b) = out["cuda"], out["cpu"]
+    lat_err = float((lat_a - lat_b).abs().max())
+    win_err = max(float((a - b).abs().max()) for wa, wb in zip(win_a, win_b) for a, b in zip(wa, wb))
+    img_err = float((img_a - img_b).abs().max())
+    if not (lat_err <= 1e-4 and win_err <= 1e-4 and img_err <= 1e-3):
+        fail(f"patch card vs CPU: latents {lat_err:.3g} (1e-4), noise windows {win_err:.3g} (1e-4), frames "
+             f"{img_err:.3g} (1e-3)")
+    errors = ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+    log(f"[reference] music information card vs CPU (4 s at {fps} fps): tempo {card[2]} on both, CQT labels equal, "
+        f"labels from the CPU's features equal; feature max errors: {errors}")
+    log(f"[reference] patch (seed 7, 64 px, fp32, banks drawn on the CPU) card vs CPU: the same JSON; latents "
+        f"{lat_err:.3g}, {len(win_a)} layers' noise windows {win_err:.3g}, frames {img_err:.3g}")
 
 
 def _to(tree, device):

@@ -1,6 +1,8 @@
 """Signal-processing helpers: normalisation and emphasis, plus the op re-exports.
 
-Counterpart of ``ssar_tpu/audio/processing.py``.
+Counterpart of ``ssar_tpu/audio/processing.py`` (the re-exports of its lines
+10-18; ``standardize``, ``spectral_flux``, ``onset_envelope`` and
+``sync_agg`` come with the reactivity metrics).
 """
 from __future__ import annotations
 
@@ -8,7 +10,13 @@ import torch
 
 from ..ops.gaussian import gaussian_filter  # noqa: F401
 from ..ops.iir import high_pass, low_pass, mid_pass  # noqa: F401
-from ..ops.quantile import quantile
+from ..ops.median import median_filter  # noqa: F401
+from ..ops.quantile import (  # noqa: F401
+    clamp_lower_percentile,
+    clamp_peaks_percentile,
+    clamp_upper_percentile,
+    quantile,
+)
 
 
 def normalize(array: torch.Tensor) -> torch.Tensor:

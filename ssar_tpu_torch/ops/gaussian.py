@@ -10,8 +10,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-_PAD_MODE = {"circular": "circular", "reflect": "reflect", "replicate": "replicate",
-             "constant": "constant"}
+from .median import pad_indices, reflect_indices
+
+_INDEX_MODE = {"circular": "wrap", "replicate": "edge"}
 
 
 def gaussian_kernel(sigma: float, radius: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -20,11 +21,25 @@ def gaussian_kernel(sigma: float, radius: int, dtype=torch.float32, device=None)
     return k / k.sum()
 
 
-def gaussian_filter(x: torch.Tensor, sigma: float, mode: str = "circular") -> torch.Tensor:
+def _pad(flat: torch.Tensor, p: int, mode: str) -> torch.Tensor:
+    """`flat` padded by `p` on both ends of its last axis as ``jnp.pad`` pads
+    in the matching mode, for any p (``F.pad`` refuses a reflect pad as long
+    as the line, which the JAX package's short sequences reach)."""
+    if mode == "constant":
+        return F.pad(flat, (p, p))
+    L = flat.shape[-1]
+    if mode == "reflect":
+        return flat.index_select(-1, reflect_indices(L, p, flat.device))
+    return flat.index_select(-1, pad_indices(L, p, _INDEX_MODE[mode], flat.device))
+
+
+def gaussian_filter(x: torch.Tensor, sigma: float, mode: str = "circular", causal: float = 1.0) -> torch.Tensor:
     """Smooth `x` along axis 0 with a gaussian of std `sigma` (frames).
 
     Accepts (T,), (T, C), (T, C, H, W)...; inputs of ndim <= 2 have trailing
-    singleton axes squeezed, as the JAX reference does.
+    singleton axes squeezed, as the JAX reference does.  `causal` is taken
+    for the reference's call surface and not used, as in the JAX package
+    (the kernel is always symmetric).
     """
     in_ndim, in_shape = x.ndim, x.shape
     T = x.shape[0]
@@ -37,10 +52,10 @@ def gaussian_filter(x: torch.Tensor, sigma: float, mode: str = "circular") -> to
     flat = x.reshape(T, -1).T[:, None, :].to(dtype)  # (B, 1, T)
 
     if radius > T:  # double pad for very short sequences
-        flat = F.pad(flat, (T, T), mode=_PAD_MODE[mode])
-        flat = F.pad(flat, (radius - T, radius - T), mode="replicate")
+        flat = _pad(flat, T, mode)
+        flat = _pad(flat, radius - T, "replicate")
     else:
-        flat = F.pad(flat, (radius, radius), mode=_PAD_MODE[mode])
+        flat = _pad(flat, radius, mode)
 
     out = F.conv1d(flat, kernel[None, None, :])
     out = out[:, 0, :].T.reshape(in_shape).to(x.dtype)

@@ -68,5 +68,10 @@ def clamp_peaks_percentile(signal: torch.Tensor, percent: float) -> torch.Tensor
     return out[:, 0] if squeeze else out
 
 
+def clamp_upper_percentile(signal: torch.Tensor, percentile: float) -> torch.Tensor:
+    """Clamp each column above its `percentile`."""
+    return torch.minimum(signal, quantile(signal, percentile / 100.0, dim=0))
+
+
 def clamp_lower_percentile(signal: torch.Tensor, percentile: float) -> torch.Tensor:
     return torch.maximum(signal, quantile(signal, percentile / 100.0, dim=0))

@@ -34,7 +34,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,k", [((1025, 193), 31), ((2, 1025, 300), 31), ((37, 16), 31), ((53, 77), 7),
-                                     ((53, 77), 9), ((3, 5, 40), 1)])
+                                     ((53, 77), 9), ((3, 5, 40), 1), ((1025, 1441), 31)])
 def test_median_cuda_kernel_matches_plain(cuda_device, shape, k):
     from ssar_tpu_torch.ops import median_cuda
 
@@ -270,3 +270,18 @@ def test_vandermonde_cuda_rejects_what_it_does_not_take(cuda_device):
         vandermonde_cuda.s4d_vandermonde_cuda(a, a, a, a[:2], 10)
     with pytest.raises(ValueError):
         vandermonde_cuda.s4d_vandermonde_cuda(a, a, a, a, 0)
+
+
+@pytest.mark.cuda
+def test_keys_draw_noise_banks_on_the_card(cuda_device):
+    """The patch system's banks are drawn on the card from the card's
+    generator: they land there, and one key gives one bank; the structure
+    draws (a scalar normal) stay on the CPU."""
+    from ssar_tpu_torch.generate import keys
+
+    key = keys.split(keys.PRNGKey(42))[1]
+    a, b = keys.normal(key, (2, 20, 64, 64), device=cuda_device), keys.normal(key, (2, 20, 64, 64), device=cuda_device)
+    assert a.device.type == "cuda" and a.dtype == torch.float32 and torch.equal(a, b)
+    assert abs(float(a.mean())) < 0.01 and abs(float(a.std()) - 1) < 0.01
+    assert not torch.equal(a, keys.normal(keys.split(key)[0], (2, 20, 64, 64), device=cuda_device))
+    assert keys.normal(key).device.type == "cpu"

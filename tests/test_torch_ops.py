@@ -280,7 +280,12 @@ def test_median_half_dtypes_match_jax(rng, dtype, mode):
 
 # ----------------------------------------------------------------- filters --
 @pytest.mark.parametrize("shape,sigma,mode", [((50,), 2.0, "circular"), ((50, 3), 10.0, "circular"),
-                                              ((12, 2, 4, 4), 5.0, "circular"), ((30, 4), 3.0, "reflect")])
+                                              ((12, 2, 4, 4), 5.0, "circular"), ((30, 4), 3.0, "reflect"),
+                                              # pads as long as the line or longer (the patch system's
+                                              # salience weighting: sigma 80 on 48 frames)
+                                              ((48, 2), 80.0, "reflect"), ((40,), 10.0, "reflect"),
+                                              ((7, 3), 20.0, "circular"), ((9,), 5.0, "replicate"),
+                                              ((20, 2), 6.0, "constant")])
 def test_gaussian_filter(rng, shape, sigma, mode):
     x = rng.randn(*shape).astype(np.float32)
     got = t_gauss.gaussian_filter(torch.as_tensor(x), sigma, mode)
@@ -346,6 +351,41 @@ def test_percentile_clamps(rng):
            j_q.clamp_peaks_percentile(jnp.asarray(x[:, 0]), 90.0), 1e-6)
     _close(t_q.clamp_lower_percentile(torch.as_tensor(x), 10.0),
            j_q.clamp_lower_percentile(jnp.asarray(x), 10.0), 1e-6)
+
+
+def test_upper_percentile_clamp_and_percentile_clip_match_jax(rng):
+    from ssar_tpu_torch.audio import processing as t_proc
+    from ssar_tpu_torch.metrics.rhythmic import percentile_clip
+
+    j_rhythmic = importlib.import_module("ssar_tpu.metrics.rhythmic")
+    j_proc = importlib.import_module("ssar_tpu.audio.processing")
+    x = rng.randn(120, 6).astype(np.float32)
+    _close(t_q.clamp_upper_percentile(torch.as_tensor(x), 90.0), j_q.clamp_upper_percentile(jnp.asarray(x), 90.0),
+           1e-6)
+    for sig, pct in ((x, 95.0), (x[:, 2], 80.0), (np.abs(x), 99.0)):
+        _close(percentile_clip(torch.as_tensor(sig), pct), j_rhythmic.percentile_clip(jnp.asarray(sig), pct), 1e-6)
+    for name in ("gaussian_filter", "high_pass", "low_pass", "mid_pass", "median_filter", "clamp_lower_percentile",
+                 "clamp_peaks_percentile", "clamp_upper_percentile", "quantile"):
+        assert callable(getattr(t_proc, name)) and callable(getattr(j_proc, name))
+
+
+# ------------------------------------------------------------------ resize --
+@pytest.mark.parametrize("shape_in,shape_out", [((8,), (16,)), ((16,), (5,)), ((5, 9), (17, 4)),
+                                                ((3, 5, 5), (20, 33, 31)), ((7, 40, 9), (3, 13, 30)),
+                                                ((4, 6, 2), (4, 6, 7))])
+@pytest.mark.parametrize("antialias", [True, False])
+def test_cubic_resize_matches_jax(rng, shape_in, shape_out, antialias):
+    """Keys' cubic (a = -0.5) as ``jax.image.resize(..., "cubic")`` computes
+    it, up and down, 1-D to 3-D, within 1e-5 of the scale."""
+    from ssar_tpu_torch.ops.resize import resize
+
+    x = rng.randn(*shape_in).astype(np.float32)
+    want = jax.image.resize(jnp.asarray(x), shape_out, "cubic", antialias=antialias)
+    got = resize(torch.as_tensor(x), shape_out, "cubic", antialias=antialias)
+    assert tuple(got.shape) == shape_out and got.dtype == torch.float32
+    _close(got, want)
+    with pytest.raises(ValueError, match="cubic"):
+        resize(torch.as_tensor(x), shape_out, "lanczos3")
 
 
 # ----------------------------------------------------------------- upfirdn --

@@ -120,7 +120,11 @@ def test_port_imports_nothing_of_jax():
     names = {str(path.relative_to(ROOT)) for path in files}
     assert {"ssar_tpu_torch/generate/optimize.py", "ssar_tpu_torch/models/hippo.py", "ssar_tpu_torch/audio/segment.py",
             "ssar_tpu_torch/audio/beat_host.py", "ssar_tpu_torch/parallel/features_sp.py",
-            "ssar_tpu_torch/gan/convert.py", "ssar_tpu_torch/ops/resize.py", "chip_smoke.py"} <= names
+            "ssar_tpu_torch/gan/convert.py", "ssar_tpu_torch/ops/resize.py", "chip_smoke.py",
+            "ssar_tpu_torch/generate/keys.py", "ssar_tpu_torch/generate/audioreactive.py",
+            "ssar_tpu_torch/generate/sample.py", "ssar_tpu_torch/generate/interactive.py",
+            "ssar_tpu_torch/metrics/rhythmic.py", "ssar_tpu_torch/examples/base_patch.py",
+            "ssar_tpu_torch/examples/widescreen_bend_patch.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
