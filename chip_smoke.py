@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serve, train and test-time-optimization paths once on one CUDA card and check them.
+"""Drive the PyTorch port's serve, train, test-time-optimization, random-patch and evaluation paths once on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,8 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: every CUDA source of the port, compiled with nvcc in parallel;
   3. kernel check: the sliding-median kernel against its plain PyTorch
      version (torch.equal) at the serve path's, the long-form chunks' and
-     tuning estimate's and a 3-minute track's shapes, the optimize path's, batched and awkward
+     tuning estimate's and a 3-minute track's shapes, the directogram's k = 3
+     filters at (1440, 8) and (192, 8), the optimize path's, batched and awkward
      shapes, lines no longer than k // 2 and inputs holding NaNs (NaNs in the
      same places), and its time and device time beside the plain version's
      and its bound; the generic kernels (odd k > 31, forward and backward) at
@@ -16,7 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
      (B3) against their plain versions at the train path's shapes, a 3-minute
      track's (N = 32 and 64) and ragged ones, two launches bit-identical, with
      their times, plain times and bounds, and B3's error against float64;
-     B2 also at float16 and bfloat16 inputs (a float32 round trip);
+     B2 also at the evaluation's video shapes, (1440, 3 x 256 x 256) and
+     (192, 3 x 1024 x 1024), and at float16 and bfloat16 inputs (a float32
+     round trip);
   3c. kernel check: the sliding median's backward (B1 bwd) against its plain
      version (torch.equal) at the HPSS and long-form chunk shapes on both
      axes, the optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and
@@ -80,7 +84,22 @@ Phases (any failure exits non-zero and prints no result line):
      the docs/PARITY.md budgets, the same tempo, the same labels from the
      CPU's features, the same CQT labels), and one seed's Patch on both
      devices with the banks drawn on the CPU (the same JSON, latents, noise
-     windows and frames).
+     windows and frames);
+  13. evaluation path: phase 11's 60 s track through the serve path
+     (audio2features, phase 4's GRU reactor, the 1024 px StyleGAN2 in bf16,
+     batch 16) into 1440 uint8 RGB frames, prepared on the card as
+     evaluate_file prepares a decoded file (box mean / 4, / 255: (1440, 3,
+     256, 256) float32), then evaluate_reactivity, every VIDEO_FEATURES entry
+     and visual_beats after one untimed run at the same shapes; stage
+     seconds, x realtime and peak memory; the sliding-median and absdiff
+     launch counts read around each and checked exactly; then
+     evaluate_reactivity and VIDEO_FEATURES on phase 4's 8 s clip at 1024
+     px as it is (192 frames, 2.4 GB), and the reference's constructed clips
+     (flashes on a click track's onsets score above a static clip);
+  14. reference check at a small size in fp32 (4 s track, 96 frames at 64
+     px): the same frames prepared on both devices, both scores, every
+     VIDEO_FEATURES output, farneback_flow on a textured clip and
+     visual_beats' tempo, card against CPU.
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
@@ -127,6 +146,17 @@ LONG_BATCH = 64
 PATCH_SECONDS = 60
 PATCH_FRAMES = PATCH_SECONDS * FPS + 1
 PATCH_B1 = 8   # four HPSS a retrieve_music_information, two median filters each
+# the evaluation path: phase 11's 60 s track rendered at 1024 px and downsampled 4x to 256 px for the metrics,
+# and phase 4's 8 s clip at 1024 px as it is
+EVAL_SIDE, EVAL_DOWNSAMPLE = 1024, 4
+EVAL_VIDEO_E = 3 * (EVAL_SIDE // EVAL_DOWNSAMPLE) ** 2     # B2's row width on the 60 s clip: 3 * 256 * 256
+CLIP_VIDEO_E = 3 * EVAL_SIDE**2                            # and on the 8 s clip
+# B1 and B2 launches, derived from the code: evaluate_reactivity separates harmonic from percussive twice (the
+# rhythmic and the chromatic metric, two filters an HPSS) and takes one absdiff; among VIDEO_FEATURES,
+# video_flow_onsets and directogram each filter a directogram twice (k = 3, both axes) and absdiff takes one
+# absdiff; visual_beats filters one directogram
+EVAL_B1 = {"evaluate_reactivity": 4, "VIDEO_FEATURES": 4, "visual_beats": 2}
+EVAL_B2 = {"evaluate_reactivity": 1, "VIDEO_FEATURES": 1, "visual_beats": 0}
 
 
 def log(*a):
@@ -163,16 +193,26 @@ def device_ms(prof) -> float:
 def device_ms_per_call(fn, calls: int = 20) -> float:
     """Device time of one call, from torch.profiler over `calls` calls: the
     kernels' own time, without the host's launch and wrapper overhead that
-    ``cuda_ms`` also sees at small shapes."""
+    ``cuda_ms`` also sees at small shapes.  Every call launches at least one
+    kernel, so a trace with fewer device events than calls, or no device
+    time, has lost some (the profiler now and then hands back none): it is
+    traced again, up to five times, and then the run fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return device_ms(prof) / calls
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
+        if sum(e.count for e in events) >= calls and ms > 0:
+            return ms
+        time.sleep(0.1)
+    fail(f"torch.profiler lost the device events of {calls} calls in five traces in a row")
 
 
 def median_design_ops(k: int) -> float:
@@ -299,6 +339,28 @@ class FrameSink:
 
     def write(self, frame):
         raise ValueError("expected I420 frames at 1024 x 1024")
+
+
+class RGBSink:
+    """In-memory frame writer that keeps every (H, W, 3) uint8 RGB frame in
+    pinned host memory, as a decoder hands a file's frames over."""
+
+    def __init__(self, n: int, side: int):
+        self.frames = torch.empty((n, side, side, 3), dtype=torch.uint8, pin_memory=True)
+        self.n = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def write(self, frame):
+        self.frames[self.n].copy_(torch.from_numpy(frame))
+        self.n += 1
+
+    def write_i420(self, frame):
+        raise ValueError("expected RGB frames")
 
 
 def main():
@@ -452,6 +514,13 @@ def main():
     patch_counts = patch_path(dev)
     reference_patch(dev)
 
+    # ---------------------------------------------------------- 13, 14 --
+    t0 = time.perf_counter()
+    eval_counts = evaluate_path(dev, synthesizer, config, palette, audio, latents, noise)
+    t1 = time.perf_counter()
+    reference_evaluate(dev)
+    log(f"[evaluate] phase 13 took {t1 - t0:.1f} s, phase 14 {time.perf_counter() - t1:.1f} s")
+
     main_row = [r for r in rows if r["shape"] == [1025, 193]]  # both axes: one HPSS
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
     ad_path = [r for r in absdiff_rows if r["path"]]
@@ -468,6 +537,7 @@ def main():
         # one HPSS at the main path's shape: the time-axis and the frequency-axis filter of (1025, 193)
         **sums(main_row), "library_ms": None, "launches_optimize": opt_counts["sliding_median"],
         "launches_longform": long_counts["sliding_median"], "launches_patch": patch_counts["sliding_median"],
+        "launches_evaluate": eval_counts["sliding_median"],
     }, {
         "name": "sliding_median_generic", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": long_counts["sliding_median_generic"],
@@ -488,6 +558,7 @@ def main():
         "name": "absdiff", "route": "cuda", "source": "ssar_tpu_torch/csrc/absdiff.cu",
         "replaces": "ssar_tpu/ops/absdiff.py:38", "launches": train_counts["absdiff"],
         "max_abs_err": absdiff_err, **sums(ad_path), "library_ms": None,
+        "launches_evaluate": eval_counts["absdiff"],
     }, {
         "name": "s4d_vandermonde", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:32", "launches": train_counts["s4d_vandermonde"],
@@ -721,8 +792,9 @@ def equal_with_nans(got: torch.Tensor, want: torch.Tensor) -> bool:
 def check_median(dev, n_sync: int):
     """B1's forward against its plain version, exactly (a selection): the
     serve path's (1025, 193), the long-form chunks' (1025, 1569) and tuning
-    HPSS's (1025, 97), the random-patch path's (1025, 1441), a 3-minute
-    track's (1025, 4320) on both axes, the
+    HPSS's (1025, 97), the random-patch and evaluation paths' (1025, 1441),
+    a 3-minute track's (1025, 4320) on both axes, the directogram's k = 3
+    filters at (1440, 8) and (192, 8), the
     optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and awkward
     shapes, short lines, and on each an input holding NaNs (a window with a
     NaN gives NaN in both)."""
@@ -733,7 +805,7 @@ def check_median(dev, n_sync: int):
     path = [((2 * n, n), 7), ((n, n), 9)]
     timed = [((1025, 193), 31), ((1025, 192), 31), ((1025, LONG_CHUNK_FRAMES), 31),
              ((1025, LONG_TUNING_FRAMES), 31), ((1025, PATCH_FRAMES), 31), ((1025, 4320), 31),
-             ((4, 1025, 4320), 31)] + path
+             ((4, 1025, 4320), 31), ((PATCH_SECONDS * FPS, 8), 3), ((8 * FPS, 8), 3)] + path
     checks = timed + [((1000, 100), 31), ((37, 16), 31), ((3, 53, 77), 7), ((53, 77), 9), ((130, 70), 9)] + SHORT_LINES
     max_err, rows, n_nan = 0.0, [], 0
     for shape, k in checks:
@@ -885,8 +957,9 @@ def check_median_generic(dev):
 
 def check_absdiff(dev):
     """B2 against its plain version at the ssabsdiff loss's shapes (batch 32,
-    8 s windows: latents 18 x 512 and the 4..32 px noise maps), ragged and
-    T = 2 shapes; rtol 1e-5 (float32 sums of positive terms in another
+    8 s windows: latents 18 x 512 and the 4..32 px noise maps), the
+    evaluation's video shapes ((1440, 3 x 256 x 256) and (192, 3 x 1024 x
+    1024)), ragged and T = 2 shapes; rtol 1e-5 (float32 sums of positive terms in another
     order), and two launches equal bit for bit; then float16 and bfloat16
     inputs at the latents' shape."""
     from ssar_tpu_torch.ops import absdiff_cuda
@@ -894,8 +967,9 @@ def check_absdiff(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     path = [(32, 192, 18 * 512), (32, 192, 1024), (32, 192, 256), (32, 192, 64), (32, 192, 16)]
+    video = [(1, PATCH_SECONDS * FPS, EVAL_VIDEO_E), (1, 8 * FPS, CLIP_VIDEO_E)]  # the evaluation's clips
     rows, max_err = [], 0.0
-    for shape in path + [(3, 33, 7), (4, 2, 100), (1, 2, 1)]:
+    for shape in path + video + [(3, 33, 7), (4, 2, 100), (1, 2, 1)]:
         x = torch.randn(shape, generator=g, device=dev)
         got, again = batch_absdiff(x), batch_absdiff(x)
         want = batch_absdiff_plain(x)
@@ -906,7 +980,8 @@ def check_absdiff(dev):
         if not torch.equal(got, again):
             fail(f"absdiff: two launches differ at {shape}")
         max_err = max(max_err, err)
-        row = {"shape": list(shape), "path": shape in path, "ms": cuda_ms(lambda: batch_absdiff(x)),
+        row = {"shape": list(shape), "path": shape in path, "video": shape in video,
+               "ms": cuda_ms(lambda: batch_absdiff(x)),
                "plain_ms": cuda_ms(lambda: batch_absdiff_plain(x)),
                "dev_ms": device_ms_per_call(lambda: batch_absdiff(x)),
                "plain_dev_ms": device_ms_per_call(lambda: batch_absdiff_plain(x))}
@@ -1692,6 +1767,278 @@ def reference_patch(dev):
         f"labels from the CPU's features equal; feature max errors: {errors}")
     log(f"[reference] patch (seed 7, 64 px, fp32, banks drawn on the CPU) card vs CPU: the same JSON; latents "
         f"{lat_err:.3g}, {len(win_a)} layers' noise windows {win_err:.3g}, frames {img_err:.3g}")
+
+
+def render_rgb(synthesizer, latents, noise, side: int, batch: int) -> torch.Tensor:
+    """The serve path's render loop with uint8 RGB transfer: (T, side, side,
+    3) frames in pinned host memory."""
+    from ssar_tpu_torch.gan.render import render_latents_to_video
+    from ssar_tpu_torch.generate.audio2video import duplicate_pyramid
+
+    sink = RGBSink(latents.shape[0], side)
+    render_latents_to_video(synthesizer, latents, duplicate_pyramid(noise)[: synthesizer.n_noises_used],
+                            output_size=(side, side), batch_size=batch, progress=False, transfer="rgb", writer=sink)
+    if sink.n != latents.shape[0]:
+        fail(f"the render wrote {sink.n} frames, expected {latents.shape[0]}")
+    return sink.frames
+
+
+def eval_stages(audio: np.ndarray, sr: int, video: torch.Tensor) -> dict:
+    """The evaluation's stages, each timed alone on the card (outside the
+    launch-counted runs): resampling, HPSS and onsets, chroma, histograms,
+    spatial spectrum, optical flow, directogram (with its onset envelope)
+    and beat tracking."""
+    from ssar_tpu_torch.audio.beat import onset_strength
+    from ssar_tpu_torch.audio.beat_host import beat_track
+    from ssar_tpu_torch.audio.features import harmonic, percussive
+    from ssar_tpu_torch.audio.processing import onset_envelope, spectral_flux
+    from ssar_tpu_torch.audio.spectral import chroma_cens
+    from ssar_tpu_torch.metrics.chroma import _frame_histograms, nn_filter_cosine_median
+    from ssar_tpu_torch.metrics.rhythmic import _audio_at_rate
+    from ssar_tpu_torch.utils.device import full_precision
+    from ssar_tpu_torch.video.features import directogram, optical_flow, video_spectrogram
+
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        return out
+
+    with full_precision():
+        a, s = timed("resample_s", lambda: _audio_at_rate(audio, sr, FPS, video.device))
+        timed("hpss_onsets_s", lambda: onset_strength(percussive(a), s))
+        timed("chroma_s", lambda: nn_filter_cosine_median(chroma_cens(harmonic(a), s)))
+        timed("histograms_s", lambda: _frame_histograms(video))
+        timed("spectrum_s", lambda: video_spectrogram(video))
+        flow = timed("optical_flow_s", lambda: optical_flow(video))
+        env = timed("directogram_s", lambda: onset_envelope(spectral_flux(directogram(flow))).cpu().numpy())
+        timed("beat_tracking_s", lambda: beat_track(env, sr=FPS * 1024, hop_length=1024))
+    return stages
+
+
+def evaluation(audio: np.ndarray, sr: int, video: torch.Tensor, beats: bool = True) -> dict:
+    """evaluate_reactivity, every VIDEO_FEATURES entry and (with `beats`)
+    visual_beats on the card, each timed, with the B1 and B2 launches of
+    each."""
+    from ssar_tpu_torch.metrics.sectional import evaluate_reactivity
+    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda
+    from ssar_tpu_torch.video.features import VIDEO_FEATURES
+    from ssar_tpu_torch.video.visual_beats import visual_beats
+
+    out = {"seconds": {}, "b1": {}, "b2": {}}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        b1, b2 = median_cuda.launches, absdiff_cuda.launches
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["b1"][name], out["b2"][name] = median_cuda.launches - b1, absdiff_cuda.launches - b2
+        return res
+
+    out["scores"] = run("evaluate_reactivity", lambda: evaluate_reactivity(audio, sr, video, FPS, device=video.device))
+    out["features"] = run("VIDEO_FEATURES", lambda: {k: fn(video) for k, fn in VIDEO_FEATURES.items()})
+    if beats:
+        out["beats"] = run("visual_beats", lambda: visual_beats(video, fps=FPS))
+    return out
+
+
+def check_evaluation(res: dict, T: int, where: str):
+    """Scores in range, every feature finite with T rows, and the B1 and B2
+    launches equal to the counts derived from the code."""
+    r, c = res["scores"]["rhythmic"], res["scores"]["chromatic"]
+    if not (math.isfinite(r) and math.isfinite(c) and 0.0 <= r <= 1.0 and -1.0 <= c <= 1.0):
+        fail(f"evaluation {where}: rhythmic {r} (in [0, 1]?), chromatic {c} (in [-1, 1]?)")
+    for name, f in res["features"].items():
+        if f.shape[0] != T or not bool(torch.isfinite(f).all()):
+            fail(f"evaluation {where}: VIDEO_FEATURES[{name!r}] {tuple(f.shape)}, finite={bool(torch.isfinite(f).all())}")
+    for key, want in (("b1", EVAL_B1), ("b2", EVAL_B2)):
+        want = {k: v for k, v in want.items() if k in res[key]}
+        if res[key] != want:
+            fail(f"evaluation {where}: {'sliding_median' if key == 'b1' else 'absdiff'} launches {res[key]}, "
+                 f"expected {want}")
+
+
+def evaluate_path(dev, synthesizer, config, palette, clip_audio: np.ndarray, clip_latents, clip_noise) -> dict:
+    """Phase 13: phase 11's 60 s track through the serve path (features, the
+    GRU reactor, 1440 frames of the 1024 px StyleGAN2 in bf16, batch 16) into
+    uint8 RGB frames, prepared on the card as a decoded file would be
+    (box-mean downsampling by 4, / 255: (1440, 3, 256, 256) float32), then
+    evaluate_reactivity, every VIDEO_FEATURES entry and visual_beats, after
+    one untimed run at the same shapes; then phase 4's 8 s clip at 1024 px as
+    it is; then the reactive and static clips of the reference's test.
+    Returns the B1 and B2 launch counts of the timed 60 s evaluation."""
+    from ssar_tpu_torch.audio.features import audio2features
+    from ssar_tpu_torch.generate.audio2video import react
+    from ssar_tpu_torch.metrics.rhythmic import rhythmic_reactivity
+    from ssar_tpu_torch.metrics.sectional import prepare_frames
+    from ssar_tpu_torch.models.reactor import LatentNoiseReactor
+
+    sr = 44100
+    track = synthetic_track(sr, PATCH_SECONDS, section_seconds=8)
+    T = PATCH_SECONDS * FPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = audio2features(track, sr, FPS, device=dev)
+    torch.manual_seed(SEED)
+    model = LatentNoiseReactor(feats.mean(0), feats.std(0) + 1e-6, palette, backbone="gru", hidden_size=32,
+                               num_layers=4).to(dev).eval()
+    latents, noise = react(model, feats, torch.Generator(dev).manual_seed(SEED + 1))
+    frames = render_rgb(synthesizer, latents, noise, EVAL_SIDE, 16)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    video = prepare_frames(frames, EVAL_DOWNSAMPLE, device=dev)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0 - render_s
+    side = EVAL_SIDE // EVAL_DOWNSAMPLE
+    if tuple(video.shape) != (T, 3, side, side) or float(video.std()) == 0.0:
+        fail(f"prepared frames {tuple(video.shape)}, std {float(video.std())}")
+    del frames
+    log(f"[evaluate] {PATCH_SECONDS} s @ 44.1 kHz -> features -> GRU reactor -> {T} uint8 RGB frames at "
+        f"{EVAL_SIDE} px (bf16, batch 16) in {render_s:.3f} s; prepared on the card (box mean / "
+        f"{EVAL_DOWNSAMPLE}, / 255) to {tuple(video.shape)} float32 ({video.numel() * 4 / 1e9:.2f} GB) in "
+        f"{prepare_s:.3f} s")
+
+    evaluation(track, sr, video)   # untimed: cuFFT plans, cuDNN heuristics, host caches at these shapes
+    torch.cuda.reset_peak_memory_stats()
+    res = evaluation(track, sr, video)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_evaluation(res, T, f"{PATCH_SECONDS} s at {side} px")
+    sec = res["seconds"]
+    bpm, beats = res["beats"]
+    stages = eval_stages(track, sr, video)
+    log(f"[evaluate] {PATCH_SECONDS} s at {side} px: evaluate_reactivity {sec['evaluate_reactivity']:.3f} s = "
+        f"{PATCH_SECONDS / sec['evaluate_reactivity']:.2f}x realtime (rhythmic {res['scores']['rhythmic']:.6f}, "
+        f"chromatic {res['scores']['chromatic']:.6f}); VIDEO_FEATURES ({len(res['features'])}) "
+        f"{sec['VIDEO_FEATURES']:.3f} s; visual_beats {sec['visual_beats']:.3f} s ({bpm:.1f} BPM, {len(beats)} "
+        f"beats); all three {sum(sec.values()):.3f} s = {PATCH_SECONDS / sum(sec.values()):.2f}x realtime; peak "
+        f"memory {peak:.2f} GiB; sliding_median launches {res['b1']}, absdiff launches {res['b2']} (as derived)")
+    log("[evaluate] stages alone: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    counts = {"sliding_median": sum(res["b1"].values()), "absdiff": sum(res["b2"].values())}
+
+    # phase 4's 8 s clip at 1024 px, not downsampled: the widest frame that users pass
+    frames = render_rgb(synthesizer, clip_latents, clip_noise, EVAL_SIDE, 16)
+    video = prepare_frames(frames, 1, device=dev)
+    del frames
+    n = video.shape[0]
+    evaluation(clip_audio, sr, video, beats=False)
+    torch.cuda.reset_peak_memory_stats()
+    res = evaluation(clip_audio, sr, video, beats=False)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_evaluation(res, n, f"8 s at {EVAL_SIDE} px")
+    sec = res["seconds"]
+    log(f"[evaluate] 8 s at {EVAL_SIDE} px ({tuple(video.shape)} float32, {video.numel() * 4 / 1e9:.2f} GB): "
+        f"evaluate_reactivity {sec['evaluate_reactivity']:.3f} s = {8 / sec['evaluate_reactivity']:.2f}x realtime "
+        f"(rhythmic {res['scores']['rhythmic']:.6f}, chromatic {res['scores']['chromatic']:.6f}); VIDEO_FEATURES "
+        f"{sec['VIDEO_FEATURES']:.3f} s; peak memory {peak:.2f} GiB; sliding_median launches {res['b1']}, absdiff "
+        f"launches {res['b2']} (as derived)")
+    del video
+
+    # the reference's constructed clips (tests/test_metrics_video.py): a white flash on each onset of a click
+    # track scores higher than a static clip
+    rng = np.random.RandomState(SEED)
+    sr_c, n = 24576, 48
+    audio = 0.05 * rng.randn(sr_c * 2).astype(np.float32)
+    audio[:: sr_c // 4] += 1.5
+    reactive = np.zeros((n, 3, 16, 16), np.float32)
+    reactive[::6] = 1.0
+    static = np.full((n, 3, 16, 16), 0.5, np.float32) + 0.01 * rng.rand(n, 3, 16, 16).astype(np.float32)
+    r_reactive = float(rhythmic_reactivity(audio, sr_c, reactive, FPS, device=dev))
+    r_static = float(rhythmic_reactivity(audio, sr_c, static, FPS, device=dev))
+    if not r_reactive > r_static:
+        fail(f"rhythmic reactivity: flashes on the onsets {r_reactive} <= a static clip {r_static}")
+    log(f"[evaluate] constructed clips: flashes on the onsets {r_reactive:.6f} > static {r_static:.6f}")
+    return counts
+
+
+def textured_clip(T: int, side: int, seed: int = SEED) -> np.ndarray:
+    """(T, 3, side, side) in [0, 1]: six gratings a channel drifting by
+    (0.7, -0.4) px a frame, a clip on which the flow is well posed
+    everywhere (tests/test_torch_video.py's)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.arange(side), np.arange(side), indexing="ij")
+    out = np.zeros((T, 3, side, side))
+    t = np.arange(T)[:, None, None]
+    for c in range(3):
+        for _ in range(6):
+            fx, fy = rng.uniform(0.05, 0.25, 2) * rng.choice([-1, 1], 2)
+            ph = rng.uniform(0, 2 * np.pi)
+            out[:, c] += np.sin(2 * np.pi * (fx * (xx - 0.7 * t) + fy * (yy + 0.4 * t)) + ph)
+    return ((out - out.min()) / (out.max() - out.min())).astype(np.float32)
+
+
+def reference_evaluate(dev):
+    """Phase 14: the evaluation at a small size on the card and on the CPU
+    (the same port code): a 4 s track through a 128 px fp32 StyleGAN2 into
+    96 uint8 frames, prepared on both devices to 64 px (equal); both scores within 1e-5,
+    every VIDEO_FEATURES output within 1e-4 of its largest magnitude,
+    farneback_flow within 1e-4 px on the interior of a textured clip, and
+    visual_beats with the same tempo.  Every comparison is made before any
+    fails, so one run reports them all."""
+    from ssar_tpu_torch.audio.features import audio2features
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Synthesizer
+    from ssar_tpu_torch.generate.audio2video import react
+    from ssar_tpu_torch.metrics.sectional import evaluate_reactivity, prepare_frames
+    from ssar_tpu_torch.models.reactor import LatentNoiseReactor
+    from ssar_tpu_torch.utils.device import full_precision
+    from ssar_tpu_torch.video.features import VIDEO_FEATURES
+    from ssar_tpu_torch.video.flow import farneback_flow
+    from ssar_tpu_torch.video.visual_beats import visual_beats
+
+    sr = 1024 * FPS
+    audio = two_part_track(sr)
+    cfg = StyleGAN2Config(resolution=128, max_channels=64)   # 12 W+ rows: three splits of the palette
+    syn = StyleGAN2Synthesizer(config=cfg, seed=SEED, dtype=torch.float32, device=dev)
+    feats = audio2features(audio, sr, FPS, device=dev)
+    torch.manual_seed(SEED)
+    palette = torch.randn(96, cfg.n_latent, 512, generator=torch.Generator().manual_seed(SEED))
+    model = LatentNoiseReactor(feats.mean(0), feats.std(0) + 1e-6, palette, backbone="gru", hidden_size=32,
+                               num_layers=4).to(dev).eval()
+    latents, noise = react(model, feats, torch.Generator(dev).manual_seed(SEED + 1))
+    with full_precision():
+        frames = render_rgb(syn, latents, noise, 128, 16)
+    v_card = prepare_frames(frames, 2, device=dev)   # to 64 px (cv2's INTER_AREA at 2: halves up)
+    v_cpu = prepare_frames(frames, 2, device="cpu")
+    problems = []
+    if not torch.equal(v_card.cpu(), v_cpu):
+        problems.append("prepare_frames differs between the card and the CPU")
+
+    card = evaluate_reactivity(audio, sr, v_card, FPS, device=dev)
+    cpu = evaluate_reactivity(audio, sr, v_cpu, FPS, device="cpu")
+    score_err = {k: abs(card[k] - cpu[k]) for k in card}
+    problems += [f"{k} card {card[k]} vs CPU {cpu[k]}" for k, e in score_err.items() if not e <= 1e-5]
+
+    feat_err = {}
+    for name, fn in VIDEO_FEATURES.items():
+        a, b = fn(v_card).cpu(), fn(v_cpu)
+        scale = float(b.abs().max())
+        feat_err[name] = float((a - b).abs().max()) / max(scale, 1e-30)
+        if not feat_err[name] <= 1e-4:
+            problems.append(f"VIDEO_FEATURES[{name!r}] card vs CPU {feat_err[name]:.3g} of its largest magnitude")
+
+    gray = torch.from_numpy(textured_clip(96, 64).mean(axis=1))
+    flow_card, flow_cpu = farneback_flow(gray.to(dev)).cpu(), farneback_flow(gray)
+    flow_err = float((flow_card - flow_cpu)[..., 8:-8, 8:-8].abs().max())
+    if not flow_err <= 1e-4:
+        problems.append(f"farneback_flow card vs CPU {flow_err:.3g} px on the interior")
+    drift = float(flow_cpu[:, 0, 8:-8, 8:-8].median())
+
+    (bpm_card, beats_card), (bpm_cpu, beats_cpu) = visual_beats(v_card, fps=FPS), visual_beats(v_cpu, fps=FPS)
+    if bpm_card != bpm_cpu:
+        problems.append(f"visual_beats tempo card {bpm_card} vs CPU {bpm_cpu}")
+    log(f"[reference] evaluation card vs CPU (4 s, 96 frames of a 128 px fp32 StyleGAN2 at 64 px): scores card {card}, CPU "
+        f"{cpu}; VIDEO_FEATURES errors over their largest magnitudes: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in feat_err.items())
+        + f"; farneback_flow on a textured clip {flow_err:.3g} px (interior, drift {drift:.3f} px a frame); "
+        f"visual_beats {bpm_card} / {bpm_cpu} BPM, beats equal: {np.array_equal(beats_card, beats_cpu)}")
+    if problems:
+        fail("evaluation card vs CPU: " + "; ".join(problems))
 
 
 def _to(tree, device):

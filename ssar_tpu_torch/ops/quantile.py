@@ -35,6 +35,12 @@ def quantile(x: torch.Tensor, q: float, dim: int | None = None, keepdim: bool = 
     return out.unsqueeze(dim) if keepdim else out
 
 
+def quantiles(x: torch.Tensor, qs) -> tuple[torch.Tensor, ...]:
+    """``quantile(x, q)`` over all of `x` for each q of `qs`, from one sort."""
+    sorted_x = torch.sort(x.reshape(-1)).values
+    return tuple(_interp(sorted_x, q, 0) for q in qs)
+
+
 def masked_quantile(x: torch.Tensor, mask: torch.Tensor, q: float, dim: int | None = None) -> torch.Tensor:
     """Quantile over the elements of `x` where `mask` is True (over all of them,
     or along `dim`).  Invalid entries sort to the end as +inf and the position

@@ -34,7 +34,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,k", [((1025, 193), 31), ((2, 1025, 300), 31), ((37, 16), 31), ((53, 77), 7),
-                                     ((53, 77), 9), ((3, 5, 40), 1), ((1025, 1441), 31)])
+                                     ((53, 77), 9), ((3, 5, 40), 1), ((1025, 1441), 31), ((1440, 8), 3),
+                                     ((96, 8), 3)])
 def test_median_cuda_kernel_matches_plain(cuda_device, shape, k):
     from ssar_tpu_torch.ops import median_cuda
 
@@ -195,7 +196,8 @@ def test_median_cuda_half_dtypes(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 192, 9216), (2, 192, 16), (3, 33, 7), (5, 2, 100), (1, 9, 1)])
+@pytest.mark.parametrize("shape", [(4, 192, 9216), (2, 192, 16), (3, 33, 7), (5, 2, 100), (1, 9, 1),
+                                   (1, 1440, 3 * 256 * 256), (1, 96, 3 * 64 * 64)])
 def test_absdiff_cuda_kernel_matches_plain(cuda_device, shape):
     from ssar_tpu_torch.ops import absdiff_cuda
 
@@ -285,3 +287,47 @@ def test_keys_draw_noise_banks_on_the_card(cuda_device):
     assert abs(float(a.mean())) < 0.01 and abs(float(a.std()) - 1) < 0.01
     assert not torch.equal(a, keys.normal(keys.split(key)[0], (2, 20, 64, 64), device=cuda_device))
     assert keys.normal(key).device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_video_features_run_the_kernels_on_the_card(cuda_device):
+    """``directogram`` filters with B1 (k = 3, both axes: two launches) and
+    the ``absdiff`` feature is one B2 launch; both equal the same function on
+    the CPU."""
+    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda
+    from ssar_tpu_torch.video import features
+
+    gen = torch.Generator().manual_seed(2)
+    flow = torch.rand(96, 2, 64, 64, generator=gen)
+    video = torch.rand(96, 3, 64, 64, generator=gen)
+    b1, b2 = median_cuda.launches, absdiff_cuda.launches
+    dg = features.directogram(flow.to(cuda_device))
+    ad = features.absdiff(video.to(cuda_device))
+    assert (median_cuda.launches - b1, absdiff_cuda.launches - b2) == (2, 1)
+    assert torch.equal(dg.cpu(), features.directogram(flow))
+    torch.testing.assert_close(ad.cpu(), features.absdiff(video), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_evaluate_reactivity_on_the_card(cuda_device):
+    """The evaluation at a small size on the card: two HPSS (four B1
+    launches) and one B2 launch, and the CPU's scores within 1e-3."""
+    import numpy as np
+
+    from ssar_tpu_torch.metrics.sectional import evaluate_reactivity
+    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda
+
+    sr, fps = 24576, 24
+    rng = np.random.RandomState(0)
+    t = np.arange(4 * sr) / sr   # a track whose tuning estimate has a wide margin (chip_smoke.two_part_track)
+    audio = (0.4 * np.sin(2 * np.pi * np.cumsum(np.where(t < 2, 220.0, 330.0)) / sr)
+             + np.where(t < 2, 0.02, 0.15) * rng.randn(len(t))).astype(np.float32)
+    audio[:: sr // 2] += 1.0
+    video = rng.rand(96, 3, 32, 32).astype(np.float32)
+    video[::12] = 1.0
+    b1, b2 = median_cuda.launches, absdiff_cuda.launches
+    card = evaluate_reactivity(audio, sr, video, fps, device=cuda_device)
+    assert (median_cuda.launches - b1, absdiff_cuda.launches - b2) == (4, 1)
+    cpu = evaluate_reactivity(audio, sr, video, fps, device="cpu")
+    for k in ("rhythmic", "chromatic"):
+        assert abs(card[k] - cpu[k]) <= 1e-3, (k, card[k], cpu[k])

@@ -124,7 +124,10 @@ def test_port_imports_nothing_of_jax():
             "ssar_tpu_torch/generate/keys.py", "ssar_tpu_torch/generate/audioreactive.py",
             "ssar_tpu_torch/generate/sample.py", "ssar_tpu_torch/generate/interactive.py",
             "ssar_tpu_torch/metrics/rhythmic.py", "ssar_tpu_torch/examples/base_patch.py",
-            "ssar_tpu_torch/examples/widescreen_bend_patch.py"} <= names
+            "ssar_tpu_torch/examples/widescreen_bend_patch.py", "ssar_tpu_torch/metrics/correlation.py",
+            "ssar_tpu_torch/metrics/chroma.py", "ssar_tpu_torch/metrics/sectional.py",
+            "ssar_tpu_torch/video/features.py", "ssar_tpu_torch/video/flow.py",
+            "ssar_tpu_torch/video/visual_beats.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
