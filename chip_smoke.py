@@ -19,8 +19,9 @@ Phases (any failure exits non-zero and prints no result line):
      track's (N = 32 and 64) and ragged ones, two launches bit-identical, with
      their times, plain times and bounds, and B3's error against float64;
      B2 also at the evaluation's video shapes, (1440, 3 x 256 x 256) and
-     (192, 3 x 1024 x 1024), and at float16 and bfloat16 inputs (a float32
-     round trip);
+     (192, 3 x 1024 x 1024), at split plans (a ragged and an odd E), each
+     row's share of its bound, and at float16 and bfloat16 inputs read as
+     they are (one kernel a call on the profiler's trace, no cast);
   3c. kernel check: the sliding median's backward (B1 bwd) against its plain
      version (torch.equal) at the HPSS and long-form chunk shapes on both
      axes, the optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and
@@ -955,60 +956,83 @@ def check_median_generic(dev):
     return rows, max_err
 
 
+def device_kernels(fn) -> list[str]:
+    """The device events (kernels, copies, fills) of one call of `fn`, by
+    name, from torch.profiler; traced again if it lost them (a call launches
+    at least one), up to five times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)
+                 if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+        if names:
+            return names
+        time.sleep(0.1)
+    fail("torch.profiler lost the device events of one call in five traces in a row")
+
+
 def check_absdiff(dev):
     """B2 against its plain version at the ssabsdiff loss's shapes (batch 32,
     8 s windows: latents 18 x 512 and the 4..32 px noise maps), the
     evaluation's video shapes ((1440, 3 x 256 x 256) and (192, 3 x 1024 x
-    1024)), ragged and T = 2 shapes; rtol 1e-5 (float32 sums of positive terms in another
-    order), and two launches equal bit for bit; then float16 and bfloat16
-    inputs at the latents' shape."""
+    1024)), a ragged E on the long-row route (3 x 1024 x 1024 + 3), a batched
+    split plan (4, 48, 3 x 512 x 512), an odd E (2, 40, 99999), ragged and
+    T = 2 shapes; rtol 1e-5 (float32 sums of positive terms in another
+    order), and two launches equal bit for bit; each row's share of its
+    bound.  Then float16 and bfloat16 inputs, read as they are, at the
+    latents' shape (bfloat16 also at the 8 s clip's): one launch a call, one
+    kernel and no cast on the profiler's trace, within one unit in the last
+    place of the float32 plain version cast, two launches equal."""
     from ssar_tpu_torch.ops import absdiff_cuda
     from ssar_tpu_torch.ops.absdiff import batch_absdiff, batch_absdiff_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     path = [(32, 192, 18 * 512), (32, 192, 1024), (32, 192, 256), (32, 192, 64), (32, 192, 16)]
     video = [(1, PATCH_SECONDS * FPS, EVAL_VIDEO_E), (1, 8 * FPS, CLIP_VIDEO_E)]  # the evaluation's clips
+    split = [(1, 8 * FPS, CLIP_VIDEO_E + 3), (4, 48, 3 * 512 * 512), (2, 40, 99999)]
+    half = [(path[0], torch.float16), (path[0], torch.bfloat16), (video[1], torch.bfloat16)]
     rows, max_err = [], 0.0
-    for shape in path + video + [(3, 33, 7), (4, 2, 100), (1, 2, 1)]:
-        x = torch.randn(shape, generator=g, device=dev)
+    for shape, dtype in [(s, torch.float32) for s in path + video + split + [(3, 33, 7), (4, 2, 100), (1, 2, 1)]] \
+            + half:
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        before = absdiff_cuda.launches
         got, again = batch_absdiff(x), batch_absdiff(x)
-        want = batch_absdiff_plain(x)
-        torch.cuda.synchronize()
-        ok, err = within(got, want, 1e-5, 0.0)
-        if not ok:
-            fail(f"absdiff differs from the plain version at {shape}: max abs error {err:.3g}")
+        if absdiff_cuda.launches != before + 2 or got.dtype != dtype:
+            fail(f"absdiff at {shape} {dtype} did not launch the kernel once a call (or returned {got.dtype})")
         if not torch.equal(got, again):
-            fail(f"absdiff: two launches differ at {shape}")
-        max_err = max(max_err, err)
-        row = {"shape": list(shape), "path": shape in path, "video": shape in video,
+            fail(f"absdiff: two launches differ at {shape} {dtype}")
+        if dtype == torch.float32:
+            ok, err = within(got, batch_absdiff_plain(x), 1e-5, 0.0)
+            max_err = max(max_err, err)
+        else:
+            # held to the float32 plain version's result cast to the dtype, within one unit in its last place
+            ok, err = within(got.float(), batch_absdiff_plain(x.float()).to(dtype).float(), torch.finfo(dtype).eps,
+                             0.0)
+            names = device_kernels(lambda: batch_absdiff(x))
+            if len(names) != 1 or "absdiff_kernel" not in names[0]:
+                fail(f"absdiff at {shape} {dtype}: one call ran {names} on the card, not one absdiff kernel")
+        torch.cuda.synchronize()
+        if not ok:
+            fail(f"absdiff at {shape} {dtype} differs from the plain version: max abs error {err:.3g}")
+        plan = absdiff_cuda.plan(x)
+        row = {"shape": list(shape), "dtype": str(dtype), "path": dtype == torch.float32 and shape in path,
+               "video": shape in video, "plan": {k: plan[k] for k in ("vec", "tc", "chunks", "slices", "threads")},
                "ms": cuda_ms(lambda: batch_absdiff(x)),
                "plain_ms": cuda_ms(lambda: batch_absdiff_plain(x)),
                "dev_ms": device_ms_per_call(lambda: batch_absdiff(x)),
                "plain_dev_ms": device_ms_per_call(lambda: batch_absdiff_plain(x))}
-        row["bound_ms"], row["bound_by"] = absdiff_bound_ms(*shape)
+        row["bound_ms"], row["bound_by"] = absdiff_bound_ms(*shape, itemsize=x.element_size())
         rows.append(row)
-        log(f"[kernel] absdiff {shape}: {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
-            f"device {row['plain_dev_ms']:.4f}; bound {row['bound_ms']:.5f} ms by {row['bound_by']}); "
-            f"max abs error {err:.3g}")
-    # other floating dtypes: a float32 round trip through the kernel, held to the float32 plain version's
-    # result cast to the dtype within one unit in its last place
-    for dtype in (torch.float16, torch.bfloat16):
-        x = torch.randn(path[0], generator=g, device=dev).to(dtype)
-        before = absdiff_cuda.launches
-        got = batch_absdiff(x)
-        if absdiff_cuda.launches != before + 1 or got.dtype != dtype:
-            fail(f"absdiff at {dtype} did not launch the kernel once (or returned {got.dtype})")
-        ok, err = within(got.float(), batch_absdiff_plain(x.float()).to(dtype).float(), torch.finfo(dtype).eps, 0.0)
-        if not ok:
-            fail(f"absdiff at {dtype} differs from the float32 plain version by {err:.3g}")
-        row = {"shape": list(path[0]), "dtype": str(dtype), "path": False, "ms": cuda_ms(lambda: batch_absdiff(x)),
-               "plain_ms": cuda_ms(lambda: batch_absdiff_plain(x)), "dev_ms": device_ms_per_call(lambda: batch_absdiff(x)),
-               "plain_dev_ms": device_ms_per_call(lambda: batch_absdiff_plain(x))}
-        row["bound_ms"], row["bound_by"] = absdiff_bound_ms(*path[0], itemsize=x.element_size())
-        rows.append(row)
-        log(f"[kernel] absdiff {path[0]} {dtype}: {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms (plain in "
-            f"{dtype} {row['plain_ms']:.4f}, device {row['plain_dev_ms']:.4f}; bound {row['bound_ms']:.5f} ms by "
-            f"{row['bound_by']}); max abs error against the float32 plain version cast {err:.3g}")
+        log(f"[kernel] absdiff {shape} {dtype}: {row['ms']:.4f} ms, device {row['dev_ms']:.4f} ms = "
+            f"{100 * row['bound_ms'] / row['dev_ms']:.1f} % of the bound {row['bound_ms']:.5f} ms by "
+            f"{row['bound_by']} (plain in {dtype} {row['plain_ms']:.4f}, device {row['plain_dev_ms']:.4f}); "
+            f"plan {row['plan']}; max abs error {err:.3g}")
+        del x, got, again
     return rows, max_err
 
 

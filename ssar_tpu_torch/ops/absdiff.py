@@ -6,9 +6,10 @@ Counterpart of ``ssar_tpu/ops/absdiff.py``: for ``x`` of shape (T, ...),
 written out (the JAX trainer's ``vmap``) and makes one launch per batch.
 
 On a CUDA tensor the forward runs the hand-written kernel
-(``absdiff_cuda.py``, ``csrc/absdiff.cu``; another floating dtype than
-float32 makes a float32 round trip) and raises on a build or launch failure;
-on a CPU tensor it runs the plain version in the input's dtype.  The backward is the JAX
+(``absdiff_cuda.py``, ``csrc/absdiff.cu``: float32, float16 and bfloat16
+read as they are, another floating dtype through float32) and raises on a
+build or launch failure; on a CPU tensor it runs the plain version in the
+input's dtype.  The backward is the JAX
 package's analytic sign-based one (plain there too), in plain torch.
 """
 from __future__ import annotations

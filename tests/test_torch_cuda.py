@@ -12,8 +12,9 @@ k // 2 keeps reflecting in both.  Its backward is
 compared exactly too: the kernel gathers each input's cotangents in the order
 the plain version adds them, and two launches give the same bits; the
 generic kernels for odd k > 31 are held the same way.  absdiff at rtol
-1e-5 (float32 sums of positive terms in another order) and bit for bit
-between two launches; the S4D Vandermonde kernel and its backward at rtol
+1e-5 (float32 sums of positive terms in another order), float16 / bfloat16
+within one unit in the last place of the float32 result cast, and bit for
+bit between two launches; the S4D Vandermonde kernel and its backward at rtol
 1e-4 with an atol of 1e-5 of the largest magnitude (exp / sin / cos of the
 same fp32 products, summed in another order).
 """
@@ -197,11 +198,15 @@ def test_median_cuda_half_dtypes(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(4, 192, 9216), (2, 192, 16), (3, 33, 7), (5, 2, 100), (1, 9, 1),
-                                   (1, 1440, 3 * 256 * 256), (1, 96, 3 * 64 * 64)])
+                                   (1, 1440, 3 * 256 * 256), (1, 96, 3 * 64 * 64), (1, 192, 3 * 1024 * 1024),
+                                   (1, 192, 3 * 1024 * 1024 + 3), (4, 48, 3 * 512 * 512), (2, 40, 99999)])
 def test_absdiff_cuda_kernel_matches_plain(cuda_device, shape):
+    """float32 at rtol 1e-5, two launches bit for bit, one launch a call,
+    whatever the plan: one block a chunk, the element axis split across
+    blocks (the long rows), the scalar route (ragged and odd E)."""
     from ssar_tpu_torch.ops import absdiff_cuda
 
-    x = torch.randn(shape, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    x = torch.randn(shape, generator=torch.Generator(device=cuda_device).manual_seed(1), device=cuda_device)
     before = absdiff_cuda.launches
     got = batch_absdiff(x)
     again = batch_absdiff(x)
@@ -209,21 +214,31 @@ def test_absdiff_cuda_kernel_matches_plain(cuda_device, shape):
     torch.testing.assert_close(got, batch_absdiff_plain(x), rtol=1e-5, atol=0)
     assert torch.equal(got, again)
     with pytest.raises(TypeError):
-        absdiff_cuda.batch_absdiff_cuda(x.int())
+        absdiff_cuda.batch_absdiff_cuda(x[:1, :3].int())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 192, 1024), (32, 192, 9216), (1, 192, 3 * 1024 * 1024), (2, 40, 99999)])
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float64])
-def test_absdiff_cuda_other_dtypes(cuda_device, dtype):
-    """Another floating dtype goes through the kernel in float32 and comes back
-    in its own dtype: equal to the float32 kernel's result cast."""
+def test_absdiff_cuda_other_dtypes(cuda_device, dtype, shape):
+    """float16 and bfloat16 are read as they are: one launch, the result in
+    the dtype within one unit in its last place of the float32 plain result
+    cast, two launches bit for bit.  float64 goes through the float32 kernel
+    and comes back: equal to the float32 kernel's result cast."""
     from ssar_tpu_torch.ops import absdiff_cuda
 
-    x = torch.randn(4, 192, 1024, generator=torch.Generator().manual_seed(3)).to(cuda_device, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
     before = absdiff_cuda.launches
     got = batch_absdiff(x)
     assert absdiff_cuda.launches == before + 1 and got.dtype == dtype
-    assert torch.equal(got, absdiff_cuda.batch_absdiff_cuda(x.float()).to(dtype))
+    if dtype == torch.float64:
+        assert torch.equal(got, absdiff_cuda.batch_absdiff_cuda(x.float()).to(dtype))
+    else:
+        # float16 sums over 3 x 1024 x 1024 elements overflow to inf in both
+        want = batch_absdiff_plain(x.float()).to(dtype).float()
+        torch.testing.assert_close(got.float(), want, rtol=torch.finfo(dtype).eps, atol=0)
+        assert torch.equal(got, batch_absdiff(x))
 
 
 def _s4d_inputs(H: int, N: int, device):
