@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serve, train, test-time-optimization, random-patch and evaluation paths once on one
-CUDA card and check them.
+"""Drive the PyTorch port's serve, train, test-time-optimization, random-patch and evaluation paths, and the
+other model families and their trainers, once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -15,7 +15,8 @@ Phases (any failure exits non-zero and prints no result line):
      and its bound; the generic kernels (odd k > 31, forward and backward) at
      k = 33 and 63 the same way;
   3b. kernel check: absdiff (B2) and the S4D Vandermonde forward and backward
-     (B3) against their plain versions at the train path's shapes, a 3-minute
+     (B3) against their plain versions at the train path's shapes, the
+     Sashimi U-Net's (32, 32, 192), (64, 32, 48) and (128, 32, 12), a 3-minute
      track's (N = 32 and 64) and ragged ones, two launches bit-identical, with
      their times, plain times and bounds, and B3's error against float64;
      B2 also at the evaluation's video shapes, (1440, 3 x 256 x 256) and
@@ -49,7 +50,8 @@ Phases (any failure exits non-zero and prints no result line):
   6. train path: ``ssar_tpu_torch.train.train.main`` at the grid of record's
      width (sashimi backbone, fixed decoder, ssabsdiff loss, hidden 32, 4
      layers, batch 32, 8 s windows at 24 fps) on 64 synthetic windows, 40
-     steps with evals, checkpoints and 256 px renders under build/; the
+     steps with evals (and their Frechet Context Distance, on by default as
+     in the JAX trainer), checkpoints and 256 px renders under build/; the
      absdiff and Vandermonde launch counts are read around this run only.
      Then 4 steps each of the other loss modes and of the learned decoder,
      a warm timed loop of ``train_step_gather`` per mode, and the trained
@@ -100,7 +102,29 @@ Phases (any failure exits non-zero and prints no result line):
   14. reference check at a small size in fp32 (4 s track, 96 frames at 64
      px): the same frames prepared on both devices, both scores, every
      VIDEO_FEATURES output, farneback_flow on a textured clip and
-     visual_beats' tempo, card against CPU.
+     visual_beats' tempo, card against CPU;
+  15. reactor backbones on the train path: ``train.main`` at phase 6's width
+     with the lstm, conv, mlp and transformer backbones (ssabsdiff, fixed
+     decoder, 4 steps each with an eval and its FCD; B2's launches read
+     around each run and checked exactly, no B3), the experiments.py smoke
+     grid's cell (mlp, learned decoder, supervised), a warm timed loop of
+     each; then a learned-decoder reactor with noise_mode="conv3d" through
+     react and a gradient step;
+  16. the Sashimi U-Net (features 32, 2 tiers of 2 blocks, pool 4, expand 2,
+     state 64) at batch 32 x 192 frames: forward and the backward of a
+     mean-square loss, timed, B3's forward and backward launches read around
+     them and checked exactly (10 and 10); 192 SashimiStreamer steps against
+     the forward within 1e-4;
+  17. the other trainers at the JAX package's defaults: train_audio2latent
+     (20 steps, the loss falls; then eval_fcd), train_psagan,
+     train_stylevideogan, train_sslstm (also with the video-patch loss through
+     a 64 px G), 10 steps each, and train_calibration_g at
+     scripts/train_calibration_g.py's defaults cut to 25 steps (the mapping
+     unchanged); ms a step and peak memory;
+  18. reference check at a small size in fp32: every new backbone, the Sashimi
+     forward and backward, the Discriminator, PSPEncoder and conv3d noise
+     pyramid, and one step of each trainer (losses and gradients), card
+     against CPU with the same weights and draws.
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
@@ -522,6 +546,14 @@ def main():
     reference_evaluate(dev)
     log(f"[evaluate] phase 13 took {t1 - t0:.1f} s, phase 14 {time.perf_counter() - t1:.1f} s")
 
+    # ------------------------------------------------------------ 15-18 --
+    t0 = time.perf_counter()
+    backbone_counts = backbones_path(dev)
+    sashimi_counts = sashimi_path(dev)
+    trainers_path(dev)
+    reference_families(dev)
+    log(f"[families] phases 15-18 took {time.perf_counter() - t0:.1f} s")
+
     main_row = [r for r in rows if r["shape"] == [1025, 193]]  # both axes: one HPSS
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
     ad_path = [r for r in absdiff_rows if r["path"]]
@@ -559,15 +591,17 @@ def main():
         "name": "absdiff", "route": "cuda", "source": "ssar_tpu_torch/csrc/absdiff.cu",
         "replaces": "ssar_tpu/ops/absdiff.py:38", "launches": train_counts["absdiff"],
         "max_abs_err": absdiff_err, **sums(ad_path), "library_ms": None,
-        "launches_evaluate": eval_counts["absdiff"],
+        "launches_evaluate": eval_counts["absdiff"], "launches_backbones": backbone_counts["absdiff"],
     }, {
         "name": "s4d_vandermonde", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:32", "launches": train_counts["s4d_vandermonde"],
         "max_abs_err": vdm_err, **sums([vdm_path]), "library_ms": None,
+        "launches_sashimi": sashimi_counts["s4d_vandermonde"],
     }, {
         "name": "s4d_vandermonde_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:92", "launches": train_counts["s4d_vandermonde_bwd"],
         "max_abs_err": vdm_bwd_err, **sums([vdm_path], "bwd_"), "library_ms": None,
+        "launches_sashimi": sashimi_counts["s4d_vandermonde_bwd"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1058,7 +1092,9 @@ def check_vandermonde(dev):
     """B3 forward and backward against the plain version and its autograd,
     on the inputs of freshly initialised S4D layers (N = 32 is state_dim 64):
     (104, 32, 192) the train path (hidden 32, fixed decoder), (56, 32, 192)
-    and (32, 32, 192) hidden 16 and 8, (104, 32, 4320) a 3-minute track,
+    and (32, 32, 192) hidden 16 and 8 (and the Sashimi U-Net's full-rate
+    tier), (64, 32, 48) and (128, 32, 12) its pooled tier and centre,
+    (104, 32, 4320) a 3-minute track,
     (104, 64, 4320) an S4DLayer(104, 128) on it (|b l| up to ~8.5e4, the
     angle reduction at its widest), (13, 7, 1000) ragged.  rtol 1e-4 with an
     atol of 1e-5 of the largest magnitude (exp / sin / cos of the same fp32
@@ -1075,7 +1111,8 @@ def check_vandermonde(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows, fwd_err, bwd_err = [], 0.0, 0.0
-    for H, N, L in ((104, 32, 192), (56, 32, 192), (32, 32, 192), (104, 32, 4320), (104, 64, 4320), (13, 7, 1000)):
+    for H, N, L in ((104, 32, 192), (56, 32, 192), (32, 32, 192), (64, 32, 48), (128, 32, 12), (104, 32, 4320),
+                    (104, 64, 4320), (13, 7, 1000)):
         torch.manual_seed(SEED + H + N)
         layer = S4DLayer(H, 2 * N).to(dev)
         with torch.no_grad():
@@ -1166,7 +1203,9 @@ def run_trainer(flags: list[str], steps: int, tag: str) -> tuple[Path, float]:
     init = trainer.make_model(args, np.zeros(59, np.float32), np.ones(59, np.float32),
                               np.zeros((args.n_latent_split * args.hidden_size, 18, 512), np.float32))
     final = _ckpt_params(trainer._latest_checkpoint(log_dir))
-    unchanged = [k for k, p in init.named_parameters() if torch.equal(p.detach(), final[k])]
+    # an LSTM's torch input bias stands for no flax parameter and is held at zero (models/backbones.py)
+    unchanged = [k for k, p in init.named_parameters()
+                 if torch.equal(p.detach(), final[k]) and not k.endswith("lstm.bias_ih_l0")]
     if unchanged:
         fail(f"{tag}: parameters unchanged after {steps} steps: {unchanged}")
     log(f"[train] {tag}: {steps} steps in {seconds:.2f} s (main, evals and renders included); loss "
@@ -1231,6 +1270,10 @@ def train_path(dev, feats: torch.Tensor) -> dict:
     counts = {"absdiff": absdiff_cuda.launches, "s4d_vandermonde": vandermonde_cuda.launches,
               "s4d_vandermonde_bwd": vandermonde_cuda.bwd_launches}
     evals = len(_metric_rows(log_dir, "Loss/val")) * math.ceil(16 / B)  # batches: 16 val windows each
+    fcd = _metric_rows(log_dir, "Eval/FCD")   # --fcd is on by default, as in the JAX trainer
+    if len(fcd) != len(_metric_rows(log_dir, "Loss/val")) or not all(map(math.isfinite, fcd)):
+        fail(f"train path: Eval/FCD {fcd} at {len(_metric_rows(log_dir, 'Loss/val'))} evals")
+    log(f"[train] Eval/FCD {fcd}")
     renders = sorted(log_dir.glob("sample_*.y4m")) + sorted(log_dir.glob("sample_*.mp4"))
     # per step one forward and one backward Vandermonde per S4D layer and 5 absdiff (one per
     # prediction); each eval batch the same forward; each render's reactor one forward per layer
@@ -2063,6 +2106,359 @@ def reference_evaluate(dev):
         f"visual_beats {bpm_card} / {bpm_cpu} BPM, beats equal: {np.array_equal(beats_card, beats_cpu)}")
     if problems:
         fail("evaluation card vs CPU: " + "; ".join(problems))
+
+# ------------------------------------------------------------------ 15-18 --
+# the reactor backbones of the JAX package's BACKBONES beyond the grid's sashimi and the serve path's GRU
+NEW_BACKBONES = ("lstm", "conv", "mlp", "transformer")
+BACKBONE_STEPS = 4
+
+
+def _peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def backbones_path(dev) -> dict:
+    """Phase 15: ``train.main`` at the grid of record's width with each new
+    backbone (ssabsdiff, fixed decoder), then the experiments.py smoke grid's
+    cell (mlp, learned decoder, supervised), each 4 steps with an eval at the
+    first; B2's launches read around each ssabsdiff run and checked exactly
+    (5 a step and 5 an eval batch), no B3; a warm timed loop of each; then a
+    learned-decoder reactor with ``noise_mode="conv3d"`` through ``react``
+    and one gradient step.  Returns B2's launches over the four runs."""
+    from ssar_tpu_torch.generate.audio2video import react
+    from ssar_tpu_torch.models.reactor import ConvNoiseUpsampler, LatentNoiseReactor
+    from ssar_tpu_torch.ops import absdiff_cuda, vandermonde_cuda
+    from ssar_tpu_torch.train import train as trainer
+    from ssar_tpu_torch.train.data import compute_stats, synthetic_dataset
+
+    args = trainer.build_parser().parse_args(TRAIN_FLAGS)
+    B = args.batch_size
+    once = ["--eval_every", "1000000", "--ckpt_every", "1000000", "--no-render_at_ckpt"]
+    total = 0
+    for name in NEW_BACKBONES:
+        flags = TRAIN_FLAGS + ["--backbone", name] + once
+        absdiff_cuda.launches = vandermonde_cuda.launches = vandermonde_cuda.bwd_launches = 0
+        log_dir, _ = run_trainer(flags, BACKBONE_STEPS, f"{name}/fixed/ssabsdiff")
+        evals = len(_metric_rows(log_dir, "Loss/val")) * math.ceil(16 / B)
+        want = 5 * (BACKBONE_STEPS + evals)
+        got = (absdiff_cuda.launches, vandermonde_cuda.launches + vandermonde_cuda.bwd_launches)
+        if got != (want, 0):
+            fail(f"{name} backbone: absdiff / Vandermonde launches {got}, expected ({want}, 0)")
+        fcd = _metric_rows(log_dir, "Eval/FCD")
+        if len(fcd) != 1 or not math.isfinite(fcd[0]):
+            fail(f"{name} backbone: Eval/FCD {fcd}")
+        total += got[0]
+        log(f"[backbones] {name}: absdiff launches {got[0]} (expected {want}: {BACKBONE_STEPS} steps, {evals} eval "
+            f"batch), Eval/FCD {fcd[0]:.4f}")
+    run_trainer(TRAIN_FLAGS + ["--backbone", "mlp", "--decoder", "learned", "--loss", "supervised"] + once,
+                BACKBONE_STEPS, "mlp/learned/supervised (the experiments.py smoke cell)")
+
+    ds = synthetic_dataset(n_windows=64, n_frames=args.duration * args.fps)
+    data = ds.to_device(dev)
+    palette = np.random.RandomState(SEED).randn(args.n_latent_split * args.hidden_size, 18, 512).astype(np.float32)
+    for name, extra in [(n, []) for n in NEW_BACKBONES] + [("mlp", ["--decoder", "learned", "--loss", "supervised"])]:
+        r = timed_steps(dev, TRAIN_FLAGS + ["--backbone", name] + extra, data, ds, palette)
+        log(f"[backbones] timed train_step_gather {name} {' '.join(extra) or 'fixed ssabsdiff'}: {r['ms_per_step']:.3f} "
+            f"ms/step = {r['examples_per_s']:.1f} examples/s (batch {B} x {args.duration * args.fps} frames); peak "
+            f"memory {r['peak_gib']:.3f} GiB; device busy {r['device_ms_per_step']:.3f} ms/step in "
+            f"{r['launches_per_step']:.0f} kernels; top device ms/step {r['top']}")
+    del data
+
+    # the v1 reactor's 3-D-conv noise pyramid: the learned decoder through react, then one gradient step
+    mean, std = compute_stats(ds.features)
+    torch.manual_seed(SEED)
+    model = LatentNoiseReactor(mean, std, backbone="gru", hidden_size=args.hidden_size, num_layers=args.num_layers,
+                               decoder="learned", noise_mode="conv3d").to(dev)
+    if not isinstance(model.decoder.noise_head, ConvNoiseUpsampler):
+        fail("noise_mode='conv3d' did not build the ConvNoiseUpsampler")
+    feats = torch.as_tensor(ds.features[0], dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    latents, noise = react(model.eval(), feats)
+    torch.cuda.synchronize()
+    t_react = time.perf_counter() - t0
+    T = feats.shape[0]
+    if tuple(latents.shape) != (T, 18, 512) or [tuple(n.shape) for n in noise] != [(T, 1, s, s) for s in (4, 8, 16, 32)]:
+        fail(f"conv3d reactor: latents {tuple(latents.shape)}, noise {[tuple(n.shape) for n in noise]}")
+    if not (bool(torch.isfinite(latents).all()) and all(bool(torch.isfinite(n).all()) for n in noise)):
+        fail("conv3d reactor: non-finite output")
+    model.train()
+    x, lat = (torch.as_tensor(a[:B], dtype=torch.float32, device=dev) for a in (ds.features, ds.latents))
+    noise_t = [torch.as_tensor(n[:B], dtype=torch.float32, device=dev) for n in ds.noises]
+
+    def step():
+        pred_lat, pred_noise = model(x)
+        loss_ = (pred_lat - lat).square().mean() + sum((n - t).square().mean() for n, t in zip(pred_noise, noise_t))
+        return loss_, torch.autograd.grad(loss_, [p for p in model.parameters() if p.requires_grad])
+
+    t0 = time.perf_counter()
+    step()   # the first call: cuDNN's choice of 3-D convolution algorithms
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss, grads = step()
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    up = [g for (n, _), g in zip(((n, p) for n, p in model.named_parameters() if p.requires_grad), grads)
+          if "noise_head" in n]
+    if not (math.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+            and all(float(g.abs().max()) > 0 for g in up)):
+        fail(f"conv3d reactor: loss {float(loss)}, a non-finite or zero gradient in the noise pyramid")
+    log(f"[backbones] conv3d learned reactor (gru, hidden {args.hidden_size}, {args.num_layers} layers): react on "
+        f"{T} frames {t_react * 1e3:.2f} ms, noise {[tuple(n.shape) for n in noise]}; a gradient step at batch {B} "
+        f"{t_step * 1e3:.2f} ms (the first {t_first * 1e3:.2f}), loss {float(loss):.5f}, {len(up)} pyramid gradients finite and non-zero; peak "
+        f"memory {_peak_gib():.3f} GiB")
+    return {"absdiff": total}
+
+
+# the Sashimi U-Net at the grid's hidden width, every other argument at the JAX package's defaults
+SASHIMI = dict(features=32, n_layers_per_tier=2, n_tiers=2, pool=4, expand=2, state_dim=64)
+SASHIMI_BATCH, SASHIMI_FRAMES = 32, 192
+
+
+def sashimi_path(dev) -> dict:
+    """Phase 16: the Sashimi U-Net forward and the backward of a mean-square
+    loss at batch 32 x 192 frames, B3's launches read around one of each and
+    checked exactly; timed; then 192 SashimiStreamer steps against the
+    forward (float32 without TF32) within 1e-4 of the largest magnitude."""
+    from ssar_tpu_torch.models.sashimi import Sashimi, SashimiStreamer
+    from ssar_tpu_torch.ops import vandermonde_cuda
+    from ssar_tpu_torch.utils.device import full_precision
+
+    cfg = SASHIMI
+    torch.manual_seed(SEED)
+    model = Sashimi(**cfg).to(dev)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    x = torch.randn(SASHIMI_BATCH, SASHIMI_FRAMES, cfg["features"], generator=gen).to(dev)
+    target = torch.randn(x.shape, generator=gen).to(dev)
+
+    def forward():
+        with torch.no_grad():
+            return model(x)
+
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        loss = (model(x) - target).square().mean()
+        loss.backward()
+        return loss
+
+    forward_backward()   # warm-up: cuFFT plans, the kernels' first launches
+    torch.cuda.synchronize()
+    # every tier: n_layers_per_tier blocks down and up; the centre n_layers_per_tier; one B3 forward and one
+    # backward a block, at (features * expand**tier, state_dim / 2, frames / pool**tier) and the centre's
+    blocks = cfg["n_tiers"] * 2 * cfg["n_layers_per_tier"] + cfg["n_layers_per_tier"]
+    vandermonde_cuda.launches = vandermonde_cuda.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    loss = forward_backward()
+    torch.cuda.synchronize()
+    counts = {"s4d_vandermonde": vandermonde_cuda.launches, "s4d_vandermonde_bwd": vandermonde_cuda.bwd_launches}
+    if counts != {"s4d_vandermonde": blocks, "s4d_vandermonde_bwd": blocks}:
+        fail(f"Sashimi forward + backward launched B3 {counts}, expected {blocks} of each")
+    if not math.isfinite(float(loss)) or any(p.grad is None or not bool(torch.isfinite(p.grad).all())
+                                             for p in model.parameters()):
+        fail(f"Sashimi: loss {float(loss)} or a gradient missing or non-finite")
+    peak = _peak_gib()
+    fwd_ms, step_ms = cuda_ms(forward, runs=10), cuda_ms(forward_backward, runs=10)
+    shapes = [(cfg["features"] * cfg["expand"] ** t, cfg["state_dim"] // 2, SASHIMI_FRAMES // cfg["pool"] ** t)
+              for t in range(cfg["n_tiers"] + 1)]
+    log(f"[sashimi] features {cfg['features']}, {cfg['n_tiers']} tiers of {cfg['n_layers_per_tier']} blocks, pool "
+        f"{cfg['pool']}, expand {cfg['expand']}, state {cfg['state_dim']}; batch {SASHIMI_BATCH} x {SASHIMI_FRAMES} "
+        f"frames: forward {fwd_ms:.3f} ms, forward + backward {step_ms:.3f} ms = "
+        f"{SASHIMI_BATCH / step_ms * 1e3:.1f} examples/s; peak memory {peak:.3f} GiB; B3 {counts} at (H, N, L) "
+        f"{shapes} (exact)")
+
+    model.eval()
+    with torch.no_grad(), full_precision():
+        want = model(x)
+        streamer = SashimiStreamer(model, SASHIMI_BATCH)
+        t0 = time.perf_counter()
+        got = torch.stack([streamer.step(x[:, t]) for t in range(SASHIMI_FRAMES)], dim=1)
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= 1e-4:
+        fail(f"SashimiStreamer differs from the forward by {err:.3g} of the largest magnitude")
+    log(f"[sashimi] {SASHIMI_FRAMES} SashimiStreamer steps in {t_stream:.3f} s "
+        f"({t_stream / SASHIMI_FRAMES * 1e3:.3f} ms a frame, batch {SASHIMI_BATCH}); against the forward "
+        f"{err:.3g} of the largest magnitude")
+    return counts
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _peak_gib()
+
+
+def trainers_path(dev):
+    """Phase 17: the other model families' trainers at the JAX package's
+    defaults on the card: ms a step, peak memory, finite losses; the
+    Audio2Latent loss falls and its FCD is finite; the calibration G keeps its
+    mapping."""
+    from ssar_tpu_torch.gan import stylegan2 as sg
+    from ssar_tpu_torch.train import palette_g, trainers
+    from ssar_tpu_torch.train.data import synthetic_dataset
+
+    ds = synthetic_dataset(n_windows=64, n_frames=8 * FPS)
+
+    def report(tag, steps, seconds, peak, losses, extra=""):
+        flat = [v for seq in losses for v in seq]
+        if not flat or not all(math.isfinite(v) for v in flat):
+            fail(f"{tag}: non-finite losses")
+        log(f"[trainers] {tag}: {steps} steps in {seconds:.3f} s = {seconds / steps * 1e3:.2f} ms/step; peak memory "
+            f"{peak:.3f} GiB; loss {[round(seq[0], 5) for seq in losses]} -> {[round(seq[-1], 5) for seq in losses]}"
+            f"{extra}")
+
+    (model, m), secs, peak = _timed(lambda: trainers.train_audio2latent(ds, n_steps=20, batch_size=8, device=dev))
+    losses = m["losses"]
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        fail(f"train_audio2latent: loss did not fall: {losses}")
+    report("train_audio2latent (gru, hidden 32, 2 layers, batch 8, (192, 18, 512) latents)", 20, secs, peak, [losses])
+    (_, m_fcd), secs, _ = _timed(lambda: trainers.train_audio2latent(ds, n_steps=1, batch_size=8, eval_fcd=True,
+                                                                     device=dev))
+    if not (math.isfinite(m_fcd["fcd"]) and m_fcd["fcd"] >= 0):
+        fail(f"train_audio2latent eval_fcd: {m_fcd['fcd']}")
+    log(f"[trainers] train_audio2latent eval_fcd: FCD {m_fcd['fcd']:.4f} (one step, the encoder's 50 steps and the "
+        f"FCD in {secs:.3f} s)")
+
+    (_, m), secs, peak = _timed(lambda: trainers.train_psagan(ds, n_steps=10, batch_size=8, device=dev))
+    report("train_psagan (features 32, 3 stages, batch 8)", 10, secs, peak, [m["d_losses"], m["g_losses"]])
+
+    wplus = np.ascontiguousarray(ds.latents[:, :24])   # 24-frame W+ sequences: the discriminator's seq_len
+    (_, m), secs, peak = _timed(lambda: trainers.train_stylevideogan(wplus, n_steps=10, batch_size=4, device=dev))
+    report("train_stylevideogan (latent 32, batch 4, 18 styles, 24 frames)", 10, secs, peak,
+           [m["d_losses"], m["g_losses"]])
+
+    (_, m), secs, peak = _timed(lambda: trainers.train_sslstm(ds, n_steps=10, batch_size=4, device=dev))
+    report("train_sslstm (hidden 16, 2 layers, batch 4)", 10, secs, peak, [m["losses"]])
+    g_cfg = sg.StyleGAN2Config(resolution=64)
+    g_params = sg.init_generator(g_cfg, torch.Generator().manual_seed(SEED), dev)
+    (_, m), secs, peak = _timed(lambda: trainers.train_sslstm(ds, n_steps=10, batch_size=4, gan_params=g_params,
+                                                              gan_config=g_cfg, video_patch_weight=0.5, device=dev))
+    report("train_sslstm with video_patch_weight 0.5 through a 64 px G", 10, secs, peak, [m["losses"]])
+
+    # scripts/train_calibration_g.py's defaults, cut to 25 steps
+    c_cfg = sg.StyleGAN2Config(resolution=256, max_channels=128)
+    init = sg.init_generator(c_cfg, torch.Generator().manual_seed(SEED), dev)
+    mapping = _to(init["mapping"], "cpu")
+    (out, secs, peak) = _timed(lambda: palette_g.train_calibration_g(c_cfg, n_steps=25, batch_size=16, lr=2e-3,
+                                                                     lambda_adv=0.05, r1_gamma=1.0, progress=False,
+                                                                     device=dev, params=init))
+    params, _, losses = out
+    moved = not torch.equal(params["convs"][0]["weight"].cpu(), init["convs"][0]["weight"].cpu())
+    same_map = all(torch.equal(a["weight"].cpu(), b["weight"]) and torch.equal(a["bias"].cpu(), b["bias"])
+                   for a, b in zip(params["mapping"], mapping))
+    if not (moved and same_map):
+        fail(f"train_calibration_g: synthesis moved {moved}, mapping unchanged {same_map}")
+    report("train_calibration_g (256 px, max_channels 128, batch 16, lambda_adv 0.05, R1 1.0, bf16)", 25, secs,
+           peak, [losses["mse"], losses["d_loss"], losses["g_adv"]],
+           f"; mapping unchanged; palette alignment {palette_g.palette_target_alignment(params, c_cfg):.3f}")
+
+
+def reference_families(dev):
+    """Phase 18: card against CPU at a small size in float32 without TF32,
+    the same weights and draws (``keys.normal`` drawn on the CPU): every new
+    backbone's forward, the Sashimi forward and backward, the Discriminator
+    and PSPEncoder, the conv3d noise pyramid, and two steps of each trainer
+    (losses, and the parameters after them), each within 1e-4 of the largest
+    magnitude."""
+    from ssar_tpu_torch.gan import stylegan2 as sg
+    from ssar_tpu_torch.gan.discriminator import Discriminator, PSPEncoder
+    from ssar_tpu_torch.generate import keys
+    from ssar_tpu_torch.models.backbones import make_backbone
+    from ssar_tpu_torch.models.reactor import ConvNoiseUpsampler
+    from ssar_tpu_torch.models.sashimi import Sashimi
+    from ssar_tpu_torch.train import palette_g, trainers
+    from ssar_tpu_torch.train.data import synthetic_dataset
+    from ssar_tpu_torch.train.palette_g import _leaves
+    from ssar_tpu_torch.utils.device import full_precision
+
+    worst = {}
+
+    def check(tag, got, want, scale=None):
+        err = float((got.detach().cpu().double() - want.detach().double()).abs().max())
+        scale = float(want.detach().abs().max()) if scale is None else scale
+        if not err <= 1e-4 * scale:
+            fail(f"reference {tag}: card differs from the CPU by {err:.3g} (largest {scale:.3g})")
+        worst[tag] = max(worst.get(tag, 0.0), err / scale if scale else 0.0)
+
+    def check_grads(tag, card_leaves, cpu_leaves):
+        """Gradients within 1e-4 of the largest gradient of the network."""
+        pairs = [(a.grad, b.grad) for a, b in zip(card_leaves, cpu_leaves) if b.grad is not None]
+        scale = max(float(b.abs().max()) for _, b in pairs)
+        for a, b in pairs:
+            check(tag, a, b, scale)
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    with full_precision():
+        x = torch.randn(4, 48, 16, generator=gen)
+        for name in NEW_BACKBONES:
+            torch.manual_seed(SEED)
+            cpu = make_backbone(name, 16, 2)[0]
+            card = copy.deepcopy(cpu).to(dev)
+            check(f"backbone {name}", card(x.to(dev)), cpu(x))
+        torch.manual_seed(SEED)
+        cpu = Sashimi(16, state_dim=16)
+        card = copy.deepcopy(cpu).to(dev)
+        xs = torch.randn(2, 64, 16, generator=gen)
+        check("sashimi forward", card(xs.to(dev)), cpu(xs))
+        for m, inp in ((cpu, xs), (card, xs.to(dev))):
+            m(inp).square().mean().backward()
+        check_grads("sashimi backward", list(card.parameters()), list(cpu.parameters()))
+        img = torch.randn(4, 32, 32, 3, generator=gen)
+        for tag, make in (("Discriminator", lambda: Discriminator(32, 1)), ("PSPEncoder", lambda: PSPEncoder(6, 32)),
+                          ("ConvNoiseUpsampler", lambda: ConvNoiseUpsampler(16, 16))):
+            torch.manual_seed(SEED)
+            cpu = make().eval()
+            card = copy.deepcopy(cpu).to(dev)
+            inp = img if tag != "ConvNoiseUpsampler" else x
+            with torch.no_grad():
+                g, w = card(inp.to(dev)), cpu(inp)
+            for a, b in zip(g if isinstance(g, list) else [g], w if isinstance(w, list) else [w]):
+                check(tag, a, b)
+
+        normal = keys.normal
+        keys.normal = lambda key, shape=(), device=None: normal(key, shape).to(device or "cpu")
+        try:
+            ds = synthetic_dataset(n_windows=4, n_frames=16, seed=3)
+            wplus = np.random.RandomState(4).randn(4, 6, 2, 512).astype(np.float32) * 0.1
+            cfg = sg.StyleGAN2Config(resolution=16, max_channels=16)
+            init = sg.init_generator(cfg, torch.Generator().manual_seed(SEED))
+            runs = {   # one step each: its losses, and the gradients it applied (left in .grad)
+                "train_audio2latent": lambda d: trainers.train_audio2latent(ds, n_steps=1, batch_size=2,
+                                                                            hidden_size=8, device=d),
+                "train_psagan": lambda d: trainers.train_psagan(ds, n_steps=1, batch_size=2, features=8, n_stages=2,
+                                                                device=d),
+                "train_stylevideogan": lambda d: trainers.train_stylevideogan(wplus, n_steps=1, batch_size=2,
+                                                                              latent_dim=8, device=d),
+                "train_sslstm": lambda d: trainers.train_sslstm(ds, n_steps=1, batch_size=2, hidden_size=6,
+                                                                n_patches=4, patch_len=4, device=d),
+            }
+            for tag, run in runs.items():
+                (m_cpu, l_cpu), (m_card, l_card) = run("cpu"), run(dev)
+                for k, v in l_cpu.items():
+                    check(f"{tag} {k}", torch.tensor(l_card[k]), torch.tensor(v))
+                mods_cpu = [m for m in (m_cpu if isinstance(m_cpu, tuple) else (m_cpu,)) if m is not None]
+                mods_card = [m for m in (m_card if isinstance(m_card, tuple) else (m_card,)) if m is not None]
+                for a, b in zip(mods_card, mods_cpu):
+                    check_grads(f"{tag} gradients", list(a.parameters()), list(b.parameters()))
+            c_cpu, c_card = (palette_g.train_calibration_g(cfg, n_steps=1, batch_size=2, progress=False, device=d,
+                                                           params=_to(init, d), dtype=torch.float32)
+                             for d in ("cpu", dev))
+            for k in c_cpu[2]:
+                check(f"train_calibration_g {k}", torch.tensor(c_card[2][k]), torch.tensor(c_cpu[2][k]))
+            synth = [k for k in c_cpu[0] if k not in ("mapping", "w_avg")]
+            check_grads("train_calibration_g G gradients", _leaves([c_card[0][k] for k in synth]),
+                        _leaves([c_cpu[0][k] for k in synth]))
+            check_grads("train_calibration_g D gradients", list(c_card[1].parameters()), list(c_cpu[1].parameters()))
+        finally:
+            keys.normal = normal
+    log("[reference] other families card vs CPU (fp32, no TF32), worst error over the largest magnitude: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
 def _to(tree, device):

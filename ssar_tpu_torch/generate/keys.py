@@ -18,6 +18,11 @@ Every call site of the JAX package maps to one call here, in the same order
 and of the same kind, so a test can replace these functions by wrappers over
 ``jax.random`` and get JAX's draws exactly.  Callers therefore reach them as
 ``keys.normal(...)``, never by importing the names.
+
+The models draw what their flax counterparts draw from ``make_rng`` streams
+(dropout, drop-path, zoneout and attention-dropout masks) through
+``bernoulli``, which takes the module's ``torch.Generator`` in place of a key
+and draws on `device` from it; a test replaces it by JAX's recorded masks.
 """
 from __future__ import annotations
 
@@ -76,9 +81,19 @@ def uniform(key) -> float:
     return float(torch.rand((), generator=_generator(key), dtype=torch.float64))
 
 
-def randint(key, minval: int, maxval: int) -> int:
-    """One integer from [minval, maxval), on the CPU."""
-    return int(torch.randint(int(minval), int(maxval), (), generator=_generator(key)))
+def fold_in(key, data: int) -> tuple[int, int]:
+    """The key derived from `key` and the integer `data`."""
+    z = _mix(_mix(_word(key) ^ 0x2545F4914F6CDD1D) + (int(data) & _MASK32))
+    return (z >> 32, z & _MASK32)
+
+
+def randint(key, minval: int, maxval: int, shape=None, device=None):
+    """One integer from [minval, maxval), on the CPU; with `shape`, an int64
+    tensor of them on `device` (drawn on the CPU)."""
+    if shape is None:
+        return int(torch.randint(int(minval), int(maxval), (), generator=_generator(key)))
+    out = torch.randint(int(minval), int(maxval), tuple(int(s) for s in shape), generator=_generator(key))
+    return out.to(device or "cpu")
 
 
 def permutation(key, n: int) -> torch.Tensor:
@@ -91,3 +106,9 @@ def choice(key, n: int, p) -> int:
     cdf = torch.cumsum(torch.as_tensor(p, dtype=torch.float64).reshape(-1)[:n], 0)
     u = float(torch.rand((), generator=_generator(key), dtype=torch.float64)) * float(cdf[-1])
     return min(int(torch.searchsorted(cdf, torch.tensor([u], dtype=torch.float64), right=True)), n - 1)
+
+
+def bernoulli(generator: torch.Generator | None, p: float, shape, device=None) -> torch.Tensor:
+    """Boolean draws, True with probability `p`, of `shape` on `device` from
+    `generator` (a generator on that device; the default one when None)."""
+    return torch.rand(tuple(int(s) for s in shape), generator=generator, device=device) < p

@@ -6,7 +6,8 @@ envelopes that a decoder turns into W+ sequences (B, T, n_ws, 512) plus a
 4-level noise pyramid [(B, T, 4, 4) ... (B, T, 32, 32)]:
 - ``FixedLatentNoiseDecoder``: convex-ish mixes of a frozen W+ palette;
 - ``LearnedLatentNoiseDecoder``: layerwise MLP heads and a (mu, sigma) noise
-  head (``noise_mode="musigma"``; the 3-D-conv pyramid is not ported).
+  head (``noise_mode="musigma"``) or the v1 reactor's 3-D-conv pyramid
+  (``noise_mode="conv3d"``, ``ConvNoiseUpsampler``).
 
 The base noise is time-smoothed standard noise.  JAX's random stream cannot
 be reproduced in torch, so it comes from a ``torch.Generator`` or is injected
@@ -21,7 +22,8 @@ import torch
 from torch import nn
 
 from ..ops.gaussian import gaussian_filter
-from ._flax import FlaxModule, dropout, gelu
+from ..ops.resize import resize
+from ._flax import Conv, FlaxModule, dropout, gelu
 from .backbones import make_backbone
 
 
@@ -144,6 +146,45 @@ class NoiseHead(FlaxModule):
         return noise
 
 
+class ConvNoiseUpsampler(FlaxModule):
+    """The v1 reactor's content-generated noise pyramid: a GLU (h * gelu(gate))
+    expands each frame's hidden state into a 2 x 2 seed of `features`
+    channels, a 3 x 3 x 3 conv (time as depth), then per scale a bilinear
+    half-pixel resize of the two spatial axes, a conv + GELU and a 1-channel
+    conv tap -> noise maps (B, T, 4, 4) .. (B, T, 32, 32).  NCDHW, padding 1:
+    flax's NDHWC ``SAME``.  Deterministic (no draws)."""
+
+    def __init__(self, in_features: int, features: int, n_outputs: int = 4):
+        super().__init__()
+        D = self.features = features
+        self.glu = nn.Linear(in_features, D * 8)
+        self.convs = nn.ModuleList([Conv(D, D, (3, 3, 3))])
+        for _ in range(n_outputs):
+            self.convs.extend([Conv(D, D, (3, 3, 3)), Conv(D, 1, (3, 3, 3))])
+        self.n_outputs = n_outputs
+
+    def flax_children(self):
+        return {"Dense_0": self.glu, **{f"Conv_{i}": c for i, c in enumerate(self.convs)}}
+
+    def forward(self, x: torch.Tensor) -> list:
+        B, T, _ = x.shape
+        D = self.features
+        h, gate = self.glu(x).chunk(2, dim=-1)
+        h = (h * gelu(gate)).reshape(B, T, 2, 2, D).permute(0, 4, 1, 2, 3)   # (B, D, T, 2, 2)
+        h = gelu(self.convs[0].forward_cf(h))
+        noise = []
+        for i in range(self.n_outputs):
+            # the spatial resize as two small products with its weights (``resize`` of the identity):
+            # F.interpolate's bilinear kernel loops over batch x channels x frames in each thread (a
+            # gradient step at batch 32 x 192 frames took 6.5 s with it on an H100)
+            w = resize(torch.eye(h.shape[-1], device=h.device), (h.shape[-1], 2 ** (i + 2)), "linear",
+                       antialias=False)
+            h = (h.transpose(-1, -2) @ w).transpose(-1, -2) @ w
+            h = gelu(self.convs[2 * i + 1].forward_cf(h))
+            noise.append(self.convs[2 * i + 2].forward_cf(h)[:, 0])
+        return noise
+
+
 class LayerwiseLinear(FlaxModule):
     """n_outputs W+ rows produced by n_layerwise independent two-layer MLPs."""
 
@@ -170,31 +211,39 @@ class LayerwiseLinear(FlaxModule):
 
 
 class LearnedLatentNoiseDecoder(FlaxModule):
-    """Envelopes -> GELU -> dropout -> (LayerwiseLinear latents, NoiseHead noise)."""
+    """Envelopes -> GELU -> dropout -> (LayerwiseLinear latents, noise from the
+    NoiseHead (``noise_mode="musigma"``) or the ConvNoiseUpsampler ("conv3d"))."""
 
     def __init__(self, in_features: int, n_ws: int = 18, n_latent_split: int = 3, n_noise: int = 4,
                  dropout: float = 0.0, noise_mode: str = "musigma"):
         super().__init__()
-        if noise_mode != "musigma":
-            raise NotImplementedError(f"noise_mode={noise_mode!r} is not ported yet: the learned decoder takes 'musigma' only (the conv3d noise upsampler is missing)")
+        if noise_mode not in ("musigma", "conv3d"):
+            raise ValueError(f"unknown noise_mode {noise_mode!r}")
         self.layerwise = LayerwiseLinear(in_features, 512, n_ws, n_latent_split, dropout)
-        self.noise_head = NoiseHead(in_features, n_noise, dropout)
-        self.dropout = dropout
+        if noise_mode == "conv3d":
+            self.noise_head = ConvNoiseUpsampler(in_features, in_features, n_noise)
+        else:
+            self.noise_head = NoiseHead(in_features, n_noise, dropout)
+        self.noise_mode, self.dropout = noise_mode, dropout
 
     def flax_children(self):
-        return {"LayerwiseLinear_0": self.layerwise, "NoiseHead_0": self.noise_head}
+        head = "ConvNoiseUpsampler_0" if self.noise_mode == "conv3d" else "NoiseHead_0"
+        return {"LayerwiseLinear_0": self.layerwise, head: self.noise_head}
 
     def forward(self, x, base_noise=None, generator=None, dropout_generator=None):
         h = dropout(gelu(x), self.dropout, self.training, dropout_generator)
         latents = self.layerwise(h, dropout_generator)
+        if self.noise_mode == "conv3d":
+            return latents, self.noise_head(h)
         return latents, self.noise_head(h, base_noise, generator, dropout_generator)
 
 
 class LatentNoiseReactor(FlaxModule):
     """features (B, T, F) -> (latents (B, T, n_ws, 512), [4 noise maps]).
 
-    Backbones "sashimi" (the default, as in the JAX package) and "gru";
-    decoders "fixed" (needs the W+ palette ``latents``) and "learned".  Build
+    Backbones "sashimi" (the default, as in the JAX package), "gru", "lstm",
+    "conv", "mlp" and "transformer"; decoders "fixed" (needs the W+ palette
+    ``latents``) and "learned" (``noise_mode`` "musigma" or "conv3d").  Build
     it on the CPU and move it with ``.to(device)``; ``load_flax`` copies the
     JAX package's variables in.
     """

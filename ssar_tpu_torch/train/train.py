@@ -12,12 +12,15 @@ Counterpart of ``ssar_tpu/train/train.py``:
 - checkpoints (``torch.save``) hold the parameters, the Adam state, the random
   generators' states and the next example index, so ``--resume`` continues
   where a run left off;
-- metrics as CSV, and TensorBoard scalars when tensorboardX is importable.
+- metrics as CSV, and TensorBoard scalars when tensorboardX is importable;
+- the Frechet Context Distance at each eval window (``--fcd``, on by default
+  as in the JAX trainer): a causal-CNN context encoder fitted once on the
+  validation latents (``metrics/context_fid.py``), logged as ``Eval/FCD``.
 
 Runs on the CUDA device unless ``--device cpu`` (or ``device="cpu"``) is given.
 Not ported yet: the JAX trainer's K-step ``train_step_scan`` (its fusion of
-steps against its runtime's dispatch latency), the Frechet Context Distance
-(``--fcd``) and the eval-time autocorrelation plots.
+steps against its runtime's dispatch latency) and the eval-time
+autocorrelation plots.
 
     python -m ssar_tpu_torch.train.train --smoke --decoder fixed --backbone sashimi --device cpu
 """
@@ -277,8 +280,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--render_size", type=int, default=256)
     parser.add_argument("--render_at_ckpt", action=argparse.BooleanOptionalAction, default=True,
                         help="render an audio2video sample at every checkpoint")
-    parser.add_argument("--fcd", action=argparse.BooleanOptionalAction, default=False,
-                        help="Frechet Context Distance at each eval window (not ported yet: raises)")
+    parser.add_argument("--fcd", action=argparse.BooleanOptionalAction, default=True,
+                        help="Frechet Context Distance at each eval window (Eval/FCD)")
     parser.add_argument("--config", type=str, default=None,
                         help="JSON config file; CLI flags explicitly given override it")
     parser.add_argument("--device", type=str, default=None, help="torch device (default: the CUDA device)")
@@ -302,9 +305,6 @@ def main(argv=None):
         from ..utils.config import apply_config_file
 
         args = apply_config_file(parser, args, args.config, argv)
-    if args.fcd:
-        raise NotImplementedError("--fcd: the Frechet Context Distance (metrics/context_fid.py) is not "
-                                  "ported yet (ROADMAP)")
     device = resolve_device(args.device)
 
     if args.smoke:  # shrink only values the user didn't set explicitly
@@ -377,6 +377,18 @@ def main(argv=None):
           f"{f'resident on {device}' if device_data is not None else 'host-streamed'} ({data_bytes/1e6:.0f} MB)",
           flush=True)
 
+    # the FCD context encoder, fitted once on real validation latent sequences
+    fcd_encode = fcd_real = None
+    if args.fcd:
+        try:
+            from ..metrics.context_fid import context_fid, train_encoder
+
+            n_fit = min(len(val_ds), 64)
+            fcd_real = np.asarray(val_ds.latents[:n_fit]).reshape(n_fit, n_frames, -1).astype(np.float32)
+            fcd_encode = train_encoder(fcd_real, n_steps=40, features=16, embed_dim=32, device=device)
+        except Exception as e:  # the FCD never stops training
+            print(f"FCD encoder unavailable: {e}")
+
     render_gan_config = None
     if args.stylegan is None:
         from ..gan.stylegan2 import StyleGAN2Config
@@ -421,12 +433,14 @@ def main(argv=None):
             losses = flush_pending()
             eval_gen = torch.Generator(device)
             eval_gen.set_state(gens[0].get_state())  # the current noise state, not advanced
-            vmse, n, vbatch_losses, lat_samples = 0.0, 0, [], []
+            vmse, n, vbatch_losses, lat_samples, fake_seqs = 0.0, 0, [], [], []
             for vbatch in val_ds.batches(args.batch_size, shuffle=False, loop=False):
-                mode_l, mse_l, lsamp, _ = eval_step(to_device(vbatch), eval_gen)
+                mode_l, mse_l, lsamp, fseq = eval_step(to_device(vbatch), eval_gen)
                 vbatch_losses.extend(mode_l.cpu().ravel().tolist())
                 vmse += float(mse_l)
                 lat_samples.append(lsamp.cpu().numpy())
+                if fcd_encode is not None and n * args.batch_size < 64:
+                    fake_seqs.append(fseq)
                 n += 1
                 if n * args.batch_size >= len(val_ds):
                     break
@@ -436,6 +450,12 @@ def main(argv=None):
             writer.scalar("Loss/val_median", val_loss_median, it)
             writer.scalar("Loss/val_mse", vmse / max(n, 1), it)
             writer.scalar("Eval/laplace_b", _laplace_b(np.concatenate(lat_samples)), it)
+            if fcd_encode is not None and fake_seqs:
+                try:
+                    fake = torch.cat(fake_seqs)
+                    writer.scalar("Eval/FCD", context_fid(fcd_encode, fcd_real[: len(fake)], fake), it)
+                except Exception as e:
+                    print(f"FCD skipped: {e}")
             rate = (it + args.batch_size - start_it) / (time.time() - t0)
             train_loss = float(np.mean(losses)) if losses else float("nan")
             print(f"iter {it}  train {train_loss:.4f}  val {val_loss:.4f}  {rate:.1f} ex/s", flush=True)

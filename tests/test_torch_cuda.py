@@ -5,7 +5,10 @@ Imports nothing of JAX, so it also runs on a machine with a card and no JAX:
     python -m pytest tests/test_torch_cuda.py -q
 
 Without a CUDA card every test skips (the kernels have no CPU mode); the
-CPU tests hold the plain versions against the JAX package.  The median is
+CPU tests hold the plain versions against the JAX package.  The other model
+families, the backbones and one or two steps of each trainer are held
+against the same code on the CPU (float32 without TF32, the draws made on
+the CPU) at 1e-4 of the largest magnitude.  The median is
 compared exactly: it selects one of the window's elements, a window holding a
 NaN gives NaN in both (NaNs in the same places), and a line no longer than
 k // 2 keeps reflecting in both.  Its backward is
@@ -346,3 +349,125 @@ def test_evaluate_reactivity_on_the_card(cuda_device):
     cpu = evaluate_reactivity(audio, sr, video, fps, device="cpu")
     for k in ("rhythmic", "chromatic"):
         assert abs(card[k] - cpu[k]) <= 1e-3, (k, card[k], cpu[k])
+
+
+# ----------------------------------------------- the other models and trainers --
+def _card_vs_cpu(make, inputs, device, rtol=1e-4):
+    """A model built on the CPU and its copy on the card, the same inputs,
+    float32 without TF32: outputs within rtol of their largest magnitude."""
+    import copy
+
+    from ssar_tpu_torch.utils.device import full_precision
+
+    cpu = make().eval()
+    card = copy.deepcopy(cpu).to(device)
+    with torch.no_grad(), full_precision():
+        want = cpu(*inputs)
+        got = card(*(x.to(device) if torch.is_tensor(x) else x for x in inputs))
+    for g, w in zip(got if isinstance(got, (tuple, list)) else [got], want if isinstance(want, (tuple, list)) else [want]):
+        assert g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= rtol * float(w.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gru", "lstm", "conv", "mlp", "transformer", "sashimi"])
+def test_backbones_on_the_card_match_the_cpu(cuda_device, name):
+    from ssar_tpu_torch.models.backbones import make_backbone
+
+    torch.manual_seed(0)
+    x = torch.randn(4, 48, 16)
+    _card_vs_cpu(lambda: make_backbone(name, 16, 2)[0], (x,), cuda_device)
+
+
+@pytest.mark.cuda
+def test_model_families_on_the_card_match_the_cpu(cuda_device):
+    import numpy as np
+
+    from ssar_tpu_torch.gan.discriminator import Discriminator, PSPEncoder
+    from ssar_tpu_torch.models.audio2latent import Audio2Latent, Audio2Latent2
+    from ssar_tpu_torch.models.psagan import ProgressiveDiscriminator
+    from ssar_tpu_torch.models.reactor import ConvNoiseUpsampler
+    from ssar_tpu_torch.models.selfsupervised import LSTMReactor, StyleVideoDiscriminator, StyleVideoGenerator
+
+    torch.manual_seed(0)
+    f = torch.randn(2, 32, 12)
+    mean, std = np.zeros(12, np.float32), np.ones(12, np.float32)
+    for backbone in ("gru", "lstm", "conv"):
+        _card_vs_cpu(lambda: Audio2Latent(mean, std, hidden_size=8, num_layers=2, backbone=backbone), (f,),
+                     cuda_device)
+    _card_vs_cpu(lambda: Audio2Latent2(mean, std, hidden_size=8, context="transformer"), (f,), cuda_device)
+    _card_vs_cpu(lambda: ConvNoiseUpsampler(12, 12), (f,), cuda_device)
+    _card_vs_cpu(lambda: ProgressiveDiscriminator(16, 12, 8, 3), (torch.randn(2, 32, 16), f), cuda_device)
+    _card_vs_cpu(lambda: StyleVideoGenerator(2, 8), (torch.randn(2, 6, 8),), cuda_device)
+    _card_vs_cpu(lambda: StyleVideoDiscriminator(6, 2, 8), (torch.randn(2, 6, 2, 512),), cuda_device)
+    _card_vs_cpu(lambda: LSTMReactor(12, 6, 2, 2), (f, torch.randn(2, 6)), cuda_device)
+    img = torch.randn(4, 16, 16, 3)
+    _card_vs_cpu(lambda: Discriminator(16, 1), (img,), cuda_device)
+    _card_vs_cpu(lambda: PSPEncoder(4, 16), (img,), cuda_device)
+
+
+@pytest.mark.cuda
+def test_sashimi_launches_b3_forward_and_backward(cuda_device):
+    """10 S4 blocks (2 a tier, 2 tiers: down and up, and the centre's 2): one
+    B3 forward and one backward each per forward and backward."""
+    from ssar_tpu_torch.models.sashimi import Sashimi
+    from ssar_tpu_torch.ops import vandermonde_cuda
+
+    model = Sashimi(16).to(cuda_device)
+    x = torch.randn(2, 64, 16, device=cuda_device)
+    before = (vandermonde_cuda.launches, vandermonde_cuda.bwd_launches)
+    model(x).square().mean().backward()
+    assert (vandermonde_cuda.launches - before[0], vandermonde_cuda.bwd_launches - before[1]) == (10, 10)
+
+
+@pytest.fixture
+def cpu_draws(monkeypatch):
+    """``keys.normal`` draws on the CPU and moves the result: a card and the
+    CPU get the same noise (each device's own stream differs otherwise)."""
+    from ssar_tpu_torch.generate import keys
+
+    normal = keys.normal
+    monkeypatch.setattr(keys, "normal", lambda key, shape=(), device=None: normal(key, shape).to(device or "cpu"))
+
+
+@pytest.mark.cuda
+def test_psagan_generator_on_the_card_matches_the_cpu(cuda_device, cpu_draws):
+    from ssar_tpu_torch.models.psagan import ProgressiveGenerator
+
+    torch.manual_seed(0)
+    _card_vs_cpu(lambda: ProgressiveGenerator(12, 16, 8, 3), (torch.randn(2, 32, 12), (0, 5)), cuda_device)
+
+
+@pytest.mark.cuda
+def test_trainer_steps_on_the_card_match_the_cpu(cuda_device, cpu_draws):
+    """Two steps of each trainer from the same seed, data and draws, float32
+    without TF32 (the calibration G's synthesis too): the losses agree."""
+    import numpy as np
+
+    from ssar_tpu_torch.gan import stylegan2 as sg
+    from ssar_tpu_torch.train import palette_g, trainers
+    from ssar_tpu_torch.train.data import synthetic_dataset
+    from ssar_tpu_torch.utils.device import full_precision
+
+    ds = synthetic_dataset(n_windows=4, n_frames=16, seed=3)
+    wplus = np.random.RandomState(4).randn(4, 6, 2, 512).astype(np.float32) * 0.1
+    cfg = sg.StyleGAN2Config(resolution=16, max_channels=16)
+    init = sg.init_generator(cfg, torch.Generator().manual_seed(0))
+    runs = {
+        "a2l": lambda d: trainers.train_audio2latent(ds, n_steps=2, batch_size=2, hidden_size=8, device=d)[1],
+        "psagan": lambda d: trainers.train_psagan(ds, n_steps=2, batch_size=2, features=8, n_stages=2,
+                                                  device=d)[1],
+        "stylevideogan": lambda d: trainers.train_stylevideogan(wplus, n_steps=2, batch_size=2, latent_dim=8,
+                                                                device=d)[1],
+        "sslstm": lambda d: trainers.train_sslstm(ds, n_steps=2, batch_size=2, hidden_size=6, n_patches=4,
+                                                  patch_len=4, device=d)[1],
+        "calibration": lambda d: palette_g.train_calibration_g(cfg, n_steps=2, batch_size=2, progress=False,
+                                                               device=d, params=init, dtype=torch.float32)[2],
+    }
+    with full_precision():
+        for name, run in runs.items():
+            cpu, card = run("cpu"), run(cuda_device)
+            for k, want in cpu.items():
+                if isinstance(want, list):
+                    got = np.asarray(card[k])
+                    assert np.all(np.abs(got - want) <= 1e-4 * np.abs(np.asarray(want)) + 1e-6), (name, k, got, want)

@@ -81,8 +81,12 @@ def test_reactor_draws_noise_from_generator():
 
 
 def test_reactor_rejects_unported_decoders():
-    # the learned decoder is ported; its 3-D-conv noise pyramid is not
-    with pytest.raises(NotImplementedError):
-        LatentNoiseReactor(np.zeros(5), np.ones(5), decoder="learned", noise_mode="conv3d")
+    # both learned-decoder noise modes are ported (the 3-D-conv pyramid too); unknown ones raise
+    model = LatentNoiseReactor(np.zeros(5), np.ones(5), decoder="learned", noise_mode="conv3d", hidden_size=4)
+    with torch.no_grad():
+        _, noise = model(torch.zeros(1, 3, 5))
+    assert [tuple(n.shape) for n in noise] == [(1, 3, s, s) for s in (4, 8, 16, 32)]
+    with pytest.raises(ValueError):
+        LatentNoiseReactor(np.zeros(5), np.ones(5), decoder="learned", noise_mode="other")
     with pytest.raises(ValueError):
         LatentNoiseReactor(np.zeros(5), np.ones(5), np.zeros((6, 18, 512)), decoder="other")

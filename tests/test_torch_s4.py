@@ -127,9 +127,12 @@ def test_s4_block_dropout_from_generator(rng):
 
 
 def test_unported_backbones_raise():
-    for name in ("lstm", "conv", "mlp", "transformer"):
-        with pytest.raises(NotImplementedError, match="is not ported yet"):
-            make_backbone(name, 8, 2)
+    """Every key of the JAX package's BACKBONES is ported now; an unknown one raises."""
+    for name in j_backbones.BACKBONES:
+        module, flax_name = make_backbone(name, 8, 2)
+        assert isinstance(module, torch.nn.Module) and flax_name.endswith("_0")
+    with pytest.raises(ValueError, match="unknown backbone"):
+        make_backbone("rwkv", 8, 2)
 
 
 # ------------------------------------------------------------------ reactors --

@@ -127,7 +127,12 @@ def test_port_imports_nothing_of_jax():
             "ssar_tpu_torch/examples/widescreen_bend_patch.py", "ssar_tpu_torch/metrics/correlation.py",
             "ssar_tpu_torch/metrics/chroma.py", "ssar_tpu_torch/metrics/sectional.py",
             "ssar_tpu_torch/video/features.py", "ssar_tpu_torch/video/flow.py",
-            "ssar_tpu_torch/video/visual_beats.py"} <= names
+            "ssar_tpu_torch/video/visual_beats.py", "ssar_tpu_torch/models/backbones.py",
+            "ssar_tpu_torch/models/sashimi.py", "ssar_tpu_torch/models/audio2latent.py",
+            "ssar_tpu_torch/models/psagan.py", "ssar_tpu_torch/models/selfsupervised.py",
+            "ssar_tpu_torch/gan/discriminator.py", "ssar_tpu_torch/metrics/context_fid.py",
+            "ssar_tpu_torch/metrics/ood.py", "ssar_tpu_torch/train/trainers.py",
+            "ssar_tpu_torch/train/latent_augmenter.py", "ssar_tpu_torch/train/palette_g.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

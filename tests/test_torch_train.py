@@ -247,7 +247,7 @@ def test_config_file_matches_jax(tmp_path):
 # ----------------------------------------------------------------- the trainer --
 _TINY = ["--decoder", "fixed", "--backbone", "sashimi", "--loss", "ssabsdiff", "--hidden_size", "4",
          "--num_layers", "1", "--duration", "4", "--batch_size", "8", "--eval_every", "100000",
-         "--no-render_at_ckpt", "--device", "cpu"]
+         "--no-render_at_ckpt", "--no-fcd", "--device", "cpu"]   # the FCD has tests of its own
 
 
 def _final_state(log_dir):
@@ -298,8 +298,8 @@ def test_trainer_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         t_train.make_train_step(model, t_train.ClippedAdam(model.parameters(), 1e-3), "ssabsdiff")
     with pytest.raises(RuntimeError, match="CUDA"):
         t_data.synthetic_dataset(n_windows=2, n_frames=8).to_device()
-    with pytest.raises(NotImplementedError, match="fcd"):
-        t_train.main(_TINY + ["--fcd"])
+    with pytest.raises(RuntimeError, match="CUDA"):   # --fcd (on by default) raises as the rest does
+        t_train.main(args + ["--fcd"])
 
 
 def test_preprocess_directory_matches_jax_and_trains_from_the_cache(tmp_path):
@@ -338,6 +338,6 @@ def test_preprocess_directory_matches_jax_and_trains_from_the_cache(tmp_path):
     log_dir, val_loss = t_train.main(["--cache_dir", str(tmp_path / "t"), "--out_dir", str(tmp_path / "runs"),
                                       "--decoder", "fixed", "--backbone", "sashimi", "--hidden_size", "4",
                                       "--num_layers", "1", "--duration", "1", "--batch_size", "4",
-                                      "--n_examples", "4", "--no-render_at_ckpt", "--device", "cpu"])
+                                      "--n_examples", "4", "--no-render_at_ckpt", "--no-fcd", "--device", "cpu"])
     np.testing.assert_array_equal(np.load(log_dir / "input_mean.npy"), np.load(tmp_path / "t" / "train_mean.npy"))
     assert np.isfinite(val_loss)
