@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serve, train, test-time-optimization, random-patch and evaluation paths, and the
-other model families and their trainers, once on one CUDA card and check them.
+"""Drive the PyTorch port's serve, train, test-time-optimization, random-patch and evaluation paths, the other
+model families and their trainers, checkpoint evaluation and the paper's comparison, once on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -86,8 +87,11 @@ Phases (any failure exits non-zero and prints no result line):
      retrieve_music_information on the card and on the CPU (features within
      the docs/PARITY.md budgets, the same tempo, the same labels from the
      CPU's features, the same CQT labels), and one seed's Patch on both
-     devices with the banks drawn on the CPU (the same JSON, latents, noise
-     windows and frames);
+     devices with the banks drawn on the CPU, Patch.forward and its noise
+     trees under no_grad only, as sample.generate runs them (the same JSON,
+     latents, noise windows and frames); fault C4: gaussian_filter with TF32
+     allowed within 1e-6 of float64, beside its convolution without the
+     filter's own full-float32 scope;
   13. evaluation path: phase 11's 60 s track through the serve path
      (audio2features, phase 4's GRU reactor, the 1024 px StyleGAN2 in bf16,
      batch 16) into 1440 uint8 RGB frames, prepared on the card as
@@ -124,7 +128,32 @@ Phases (any failure exits non-zero and prints no result line):
   18. reference check at a small size in fp32: every new backbone, the Sashimi
      forward and backward, the Discriminator, PSPEncoder and conv3d noise
      pyramid, and one step of each trainer (losses and gradients), card
-     against CPU with the same weights and draws.
+     against CPU with the same weights and draws;
+  19. a trained run loaded back: phase 6's run through
+     train.evaluate.load_checkpoint (its forward on phase 4's features equal
+     to the trained model's, torch.equal), generate_longform on phase 11's
+     60 s track at 1024 px (bf16, batch 16), generate_by_data_split of 2
+     windows at 256 px, feature_sensitivity on 192 frames x 59 features x 4
+     perturbations; then three synthetic tracks as a raw streaming cache and
+     as windowed shards (the first batch equal) and train.main for 4 steps at
+     phase 6's width on the raw cache (MmapWindowDataset, the native loader
+     built by g++), with its diagnostics PNGs; B1 / B2 / B3 launches checked
+     exactly on each path;
+  20. the paper's comparison at scripts/run_study.py's configuration: a
+     256 px StyleGAN2 (max_channels 512, random weights, bf16), two 16 s
+     synthetic clips at 24576 Hz (cut from 6), the random patch, phase 6's
+     reactor, the comparison's test-time optimization (N = 128, 512 steps)
+     and the LucidSonicDreams recipe through compare_models, then its
+     forward-only pass; the scorer's calibration on the four recipes
+     (rendered at 256 px, resized to 128 px); av_feature_study and its report
+     over the recipe clips; ood.video_vs_generator through a discriminator's
+     features over 256 samples; preliminary_study on the study's features;
+     every (clip, model) record present and finite, seconds a record, the
+     music information's seconds, peak memory and launches (exact);
+  21. reference check at a small size in fp32 (64 px model, 4 s clip), card
+     against CPU with the same weights and draws: evaluate_clip of each
+     predictor, feature_sensitivity, ood.compute with the default extractor,
+     one calibration recipe's frames.
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
@@ -525,7 +554,7 @@ def main():
     reference_wrapper(dev, syn_cpu)
 
     # ---------------------------------------------------------------- 6 --
-    train_counts = train_path(dev, feats)
+    train_counts, train_log_dir = train_path(dev, feats)
 
     # ---------------------------------------------------------------- 7 --
     reference_step(dev)
@@ -538,6 +567,7 @@ def main():
     # ---------------------------------------------------------- 11, 12 --
     patch_counts = patch_path(dev)
     reference_patch(dev)
+    check_c4(dev)
 
     # ---------------------------------------------------------- 13, 14 --
     t0 = time.perf_counter()
@@ -553,6 +583,15 @@ def main():
     trainers_path(dev)
     reference_families(dev)
     log(f"[families] phases 15-18 took {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------------------ 19-21 --
+    t0 = time.perf_counter()
+    checkpoint_counts = checkpoint_path(dev, train_log_dir, feats)
+    t1 = time.perf_counter()
+    study_counts = study_path(dev, train_log_dir)
+    t2 = time.perf_counter()
+    reference_study(dev)
+    log(f"[study] phase 19 took {t1 - t0:.1f} s, phase 20 {t2 - t1:.1f} s, phase 21 {time.perf_counter() - t2:.1f} s")
 
     main_row = [r for r in rows if r["shape"] == [1025, 193]]  # both axes: one HPSS
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
@@ -570,7 +609,8 @@ def main():
         # one HPSS at the main path's shape: the time-axis and the frequency-axis filter of (1025, 193)
         **sums(main_row), "library_ms": None, "launches_optimize": opt_counts["sliding_median"],
         "launches_longform": long_counts["sliding_median"], "launches_patch": patch_counts["sliding_median"],
-        "launches_evaluate": eval_counts["sliding_median"],
+        "launches_evaluate": eval_counts["sliding_median"], "launches_checkpoint": checkpoint_counts["sliding_median"],
+        "launches_study": study_counts["sliding_median"],
     }, {
         "name": "sliding_median_generic", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": long_counts["sliding_median_generic"],
@@ -587,21 +627,25 @@ def main():
         "max_abs_err": bwd_err,
         # one prediction's pair on the optimize path: (2n, n) k = 7 and (n, n) k = 9
         **sums([r for r in bwd_rows if r["path"]]), "library_ms": None,
+        "launches_study": study_counts["sliding_median_bwd"],
     }, {
         "name": "absdiff", "route": "cuda", "source": "ssar_tpu_torch/csrc/absdiff.cu",
         "replaces": "ssar_tpu/ops/absdiff.py:38", "launches": train_counts["absdiff"],
         "max_abs_err": absdiff_err, **sums(ad_path), "library_ms": None,
         "launches_evaluate": eval_counts["absdiff"], "launches_backbones": backbone_counts["absdiff"],
+        "launches_checkpoint": checkpoint_counts["absdiff"], "launches_study": study_counts["absdiff"],
     }, {
         "name": "s4d_vandermonde", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:32", "launches": train_counts["s4d_vandermonde"],
         "max_abs_err": vdm_err, **sums([vdm_path]), "library_ms": None,
-        "launches_sashimi": sashimi_counts["s4d_vandermonde"],
+        "launches_sashimi": sashimi_counts["s4d_vandermonde"], "launches_checkpoint": checkpoint_counts["s4d_vandermonde"],
+        "launches_study": study_counts["s4d_vandermonde"],
     }, {
         "name": "s4d_vandermonde_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:92", "launches": train_counts["s4d_vandermonde_bwd"],
         "max_abs_err": vdm_bwd_err, **sums([vdm_path], "bwd_"), "library_ms": None,
         "launches_sashimi": sashimi_counts["s4d_vandermonde_bwd"],
+        "launches_checkpoint": checkpoint_counts["s4d_vandermonde_bwd"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1252,9 +1296,9 @@ def timed_steps(dev, flags: list[str], data, ds, palette, steps: int = 20, warm:
             "launches_per_step": sum(e.count for e in kernels) / 5, "top": top}
 
 
-def train_path(dev, feats: torch.Tensor) -> dict:
+def train_path(dev, feats: torch.Tensor) -> tuple[dict, Path]:
     """Phase 6; returns the absdiff / Vandermonde launch counts of the
-    full-width ssabsdiff run."""
+    full-width ssabsdiff run, and its run directory."""
     from ssar_tpu_torch.generate.audio2video import react
     from ssar_tpu_torch.ops import absdiff_cuda, vandermonde_cuda
     from ssar_tpu_torch.train import train as trainer
@@ -1276,9 +1320,11 @@ def train_path(dev, feats: torch.Tensor) -> dict:
     log(f"[train] Eval/FCD {fcd}")
     renders = sorted(log_dir.glob("sample_*.y4m")) + sorted(log_dir.glob("sample_*.mp4"))
     # per step one forward and one backward Vandermonde per S4D layer and 5 absdiff (one per
-    # prediction); each eval batch the same forward; each render's reactor one forward per layer
+    # prediction); each eval batch the same forward; each eval's diagnostics and each render's reactor one
+    # forward per layer
     n = args.num_layers
-    want = {"absdiff": 5 * (TRAIN_STEPS + evals), "s4d_vandermonde": n * (TRAIN_STEPS + evals + len(renders)),
+    want = {"absdiff": 5 * (TRAIN_STEPS + evals),
+            "s4d_vandermonde": n * (TRAIN_STEPS + evals + len(_metric_rows(log_dir, "Loss/val")) + len(renders)),
             "s4d_vandermonde_bwd": n * TRAIN_STEPS}
     log(f"[train] launches in the ssabsdiff run: {counts} (expected {want}: {TRAIN_STEPS} steps, {evals} evals, "
         f"{len(renders)} renders)")
@@ -1335,7 +1381,7 @@ def train_path(dev, feats: torch.Tensor) -> dict:
              f"expected {args.num_layers}")
     log(f"[train] trained sashimi reactor on the serve features: latents {tuple(latents.shape)}, "
         f"{vandermonde_cuda.launches} Vandermonde launches")
-    return counts
+    return counts, log_dir
 
 
 class _CaptureGrads:
@@ -1805,7 +1851,9 @@ def reference_patch(dev):
     syn_card = StyleGAN2Synthesizer(config=cfg, dtype=torch.float32, device=dev, params=_to(mapper.params, dev))
     feats, segs, tempo = cpu
     out, jsons = {}, []
-    with _banks_from_the_cpu(), full_precision(), torch.no_grad():
+    # the patch and its noise trees in sample.generate's own scope, no_grad only: their gaussian filters take
+    # full float32 themselves (fault C4); the synthesis, which sample.generate runs in bf16, in full float32
+    with _banks_from_the_cpu(), torch.no_grad():
         for device in (dev, torch.device("cpu")):
             patch = Patch(_to(feats, device), {k: v.to(device) for k, v in segs.items()}, tempo, fps=fps, seed=7)
             path = ROOT / "build" / "chip_smoke_runs" / f"patch_{device.type}.json"
@@ -1818,7 +1866,9 @@ def reference_patch(dev):
             T = latents.shape[0]
             windows = [[nm(i, 4).cpu() for i in (0, T - 2)] for nm in noise]
             syn = syn_card if device.type == "cuda" else syn_cpu
-            frames = syn(latents[:4], noises=[nm(0, 4)[..., None] for nm in noise[4 : 4 + syn.n_noises_used]]).cpu()
+            with full_precision():
+                frames = syn(latents[:4], noises=[nm(0, 4)[..., None] for nm in noise[4 : 4 + syn.n_noises_used]])
+            frames = frames.cpu()
             out[device.type] = (latents.cpu(), windows, frames)
     if jsons[0] != jsons[1]:
         fail("patch JSON differs between the card and the CPU")
@@ -1834,6 +1884,39 @@ def reference_patch(dev):
         f"labels from the CPU's features equal; feature max errors: {errors}")
     log(f"[reference] patch (seed 7, 64 px, fp32, banks drawn on the CPU) card vs CPU: the same JSON; latents "
         f"{lat_err:.3g}, {len(win_a)} layers' noise windows {win_err:.3g}, frames {img_err:.3g}")
+
+
+def check_c4(dev):
+    """Fault C4: ``gaussian_filter`` on the card with TF32 explicitly allowed
+    for cuDNN, within 1e-6 of float64 on the CPU relative to the largest
+    output; beside it, the same convolution without the filter's own scope,
+    as it ran before the repair (whether cuDNN picks a TF32 algorithm)."""
+    import torch.nn.functional as F
+
+    from ssar_tpu_torch.ops.gaussian import gaussian_filter, gaussian_kernel
+
+    rows = []
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for shape, sigma in (((1440, 59), 2.0), ((192, 4, 32, 32), 5.0), ((96, 3, 64, 64), 20.0)):
+            x = torch.randn(shape, generator=torch.Generator().manual_seed(SEED))
+            want = gaussian_filter(x.double(), sigma)
+            scale = float(want.abs().max())
+            fixed = float((gaussian_filter(x.to(dev), sigma).cpu().double() - want).abs().max()) / scale
+            r = int(sigma * 4)
+            flat = F.pad(x.reshape(shape[0], -1).T[:, None, :].to(dev), (r, r), mode="circular")
+            raw = F.conv1d(flat, gaussian_kernel(sigma, r, device=dev)[None, None])[:, 0].T.reshape(shape)
+            before = float((raw.cpu().double() - want).abs().max()) / scale
+            rows.append(f"{shape} sigma {sigma}: {fixed:.3g} (without the scope {before:.3g})")
+            if not fixed <= 1e-6:
+                fail(f"gaussian_filter on the card with TF32 allowed: {fixed:.3g} of the largest output from float64")
+        if torch.backends.cudnn.allow_tf32 is not True:
+            fail("gaussian_filter did not restore cudnn.allow_tf32")
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    log("[reference] C4: gaussian_filter with TF32 allowed, error against float64 over the largest output: "
+        + "; ".join(rows))
 
 
 def render_rgb(synthesizer, latents, noise, side: int, batch: int) -> torch.Tensor:
@@ -2459,6 +2542,496 @@ def reference_families(dev):
             keys.normal = normal
     log("[reference] other families card vs CPU (fp32, no TF32), worst error over the largest magnitude: "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+# ------------------------------------------------------------------ 19-21 --
+# the kernels' launch counters, read around each path of phases 19 and 20
+COUNTED = ("sliding_median", "sliding_median_bwd", "absdiff", "s4d_vandermonde", "s4d_vandermonde_bwd")
+
+
+def _zero_counts():
+    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda, vandermonde_cuda
+
+    median_cuda.launches = median_cuda.bwd_launches = median_cuda.generic_launches = 0
+    median_cuda.generic_bwd_launches = absdiff_cuda.launches = 0
+    vandermonde_cuda.launches = vandermonde_cuda.bwd_launches = 0
+
+
+def _counts() -> dict:
+    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda, vandermonde_cuda
+
+    if median_cuda.generic_launches or median_cuda.generic_bwd_launches:
+        fail("a path launched the generic (k > 31) median kernels, which no caller asks for")
+    return {"sliding_median": median_cuda.launches, "sliding_median_bwd": median_cuda.bwd_launches,
+            "absdiff": absdiff_cuda.launches, "s4d_vandermonde": vandermonde_cuda.launches,
+            "s4d_vandermonde_bwd": vandermonde_cuda.bwd_launches}
+
+
+def _expect(what: str, got: dict, **want):
+    """Fail unless the launch counts are exactly `want` (every other kernel 0)."""
+    want = {k: want.get(k, 0) for k in COUNTED}
+    if got != want:
+        fail(f"{what}: kernel launches {got}, expected {want}")
+
+
+def _add(total: dict, counts: dict):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def optional_packages() -> dict:
+    """Which of the optional packages the harness uses this machine has (found
+    without importing them: grain imports JAX where it is installed with it)."""
+    import importlib.util
+
+    return {name: importlib.util.find_spec(name) is not None for name in ("grain", "matplotlib", "pandas")}
+
+
+# B1 launches, derived from the code: an HPSS is two filters.  The comparison's 9 audio features separate
+# harmonic from percussive four times (chromagram, tonnetz's chromagram, onsets, pulse); its 12 video features
+# filter two directograms at k = 3 (directogram, video_flow_onsets), and take one absdiff (B2).  A reactor's
+# audio2features takes 4, the random patch's music information 8, the optimizer's feature set 6 (chromagram,
+# tonnetz, onsets), the LucidSonicDreams recipe 4 (onsets, harmonic RMS); the recipes' chroma and onsets 2 each.
+SCORE_B1, SCORE_B2 = 8 + 4, 1
+PREDICT_B1 = {"random_patch": PATCH_B1, "sashimi_ssabsdiff": 4, "ssopt": 6, "lucid": 4}
+RECIPE_B1 = {"low": 0, "high_chroma": 2, "high_onset": 2, "high_both": 4}
+STUDY_SR, STUDY_SECONDS, STUDY_CLIPS = 1024 * FPS, 16, 2   # scripts/run_study.py: 16 s clips, cut from 6 to 2
+
+
+def _raw_tracks(seed: int, lengths: list[int]):
+    """Feature, latent and noise tracks of the given frame counts, concatenated."""
+    rs = np.random.RandomState(seed)
+    n = sum(lengths)
+    return (rs.randn(n, 59).astype(np.float32), (0.1 * rs.randn(n, 18, 512)).astype(np.float32),
+            [(0.1 * rs.randn(n, s, s)).astype(np.float32) for s in (4, 8, 16, 32)])
+
+
+def raw_cache_run(dev) -> dict:
+    """Phase 19's raw streaming cache: three synthetic tracks written both as a
+    raw cache and as windowed shards; the trainer's first batch equal from
+    either; then ``train.main`` at the train cell's width for 4 steps on the
+    raw cache through ``MmapWindowDataset``, B2 / B3 launches exact."""
+    from ssar_tpu_torch.train import data
+
+    root = ROOT / "build" / "chip_smoke_runs"
+    raw, shards = root / "raw_cache", root / "windowed_cache"
+    L = 8 * FPS
+    lengths = {"train": [480, 600, 384], "val": [336]}
+    for seed, (split, lens) in enumerate(lengths.items()):
+        feats, lats, noises = _raw_tracks(SEED + seed, lens)
+        data.write_raw_cache(raw, split, feats, lats, noises, L, lens)
+        cuts = np.cumsum([0] + lens)
+        shards.mkdir(parents=True, exist_ok=True)
+        for name, a in zip(["features", "latents"] + [f"noise{s}" for s in (4, 8, 16, 32)], [feats, lats, *noises]):
+            np.save(shards / f"{split}_{name}.npy",
+                    np.concatenate([data.overlapping_slices(a[lo:hi], L) for lo, hi in zip(cuts, cuts[1:])]))
+    mean, std = data.compute_stats(_raw_tracks(SEED, lengths["train"])[0])
+    for d in (raw, shards):
+        np.save(d / "train_mean.npy", mean)
+        np.save(d / "train_std.npy", std)
+    ds_raw, ds_shards = data.load_cached(raw, "train"), data.load_cached(shards, "train")
+    if not isinstance(ds_raw, data.MmapWindowDataset) or len(ds_raw) != len(ds_shards) != 21:
+        fail(f"raw cache: {type(ds_raw).__name__} of {len(ds_raw)} windows, shards {len(ds_shards)}")
+    t0 = time.perf_counter()
+    first = next(ds_raw.batches_from(ds_raw.index_batches(32, seed=42)))
+    gather_s = time.perf_counter() - t0
+    want = next(ds_shards.batches_from(ds_shards.index_batches(32, seed=42)))
+    if not all(np.array_equal(a, b) for a, b in zip(first, want)):
+        fail("raw cache: the first batch differs from the windowed shards' for the same starts")
+    if not all(torch.equal(torch.as_tensor(a).to(dev).cpu(), torch.as_tensor(a)) for a in first):
+        fail("raw cache: a batch changed on its way to the card")
+    log(f"[checkpoint] raw cache: {len(ds_raw)} train windows from {len(lengths['train'])} tracks; the first batch "
+        f"of 32 equals the windowed shards' ({sum(a.nbytes for a in first) / 1e6:.1f} MB gathered in "
+        f"{gather_s * 1e3:.1f} ms by the native loader)")
+
+    _zero_counts()
+    steps, B = 4, 32
+    flags = TRAIN_FLAGS + ["--cache_dir", str(raw), "--eval_every", str((steps - 1) * B), "--no-render_at_ckpt"]
+    log_dir, _ = run_trainer(flags, steps, "sashimi/fixed/ssabsdiff on the raw cache")
+    counts = _counts()
+    n_val, evals = 4, 2   # one wrap-padded val batch an eval; evals at the first and the last step
+    # a step: 5 absdiff, one forward and one backward Vandermonde a layer; an eval batch: 5 absdiff and the
+    # forward; each eval's diagnostics: one more forward
+    _expect("train.main on the raw cache", counts, absdiff=5 * (steps + evals), s4d_vandermonde=4 * (steps + 2 * evals),
+            s4d_vandermonde_bwd=4 * steps)
+    if len(ds_raw.starts) != 21 or n_val != len(data.load_cached(raw, "val")):
+        fail("raw cache: unexpected window counts")
+    pngs = sorted(p.name for p in log_dir.glob("diagnostics_*.png"))
+    if optional_packages()["matplotlib"]:
+        if pngs != ["diagnostics_00000000.png", f"diagnostics_{(steps - 1) * B:08d}.png"]:
+            fail(f"diagnostics: {pngs}")
+        log(f"[checkpoint] diagnostics written at each eval: {pngs}")
+    else:
+        log("[checkpoint] diagnostics skipped: matplotlib is not installed here (the trainer says so and goes on)")
+    return counts
+
+
+def checkpoint_path(dev, log_dir: Path, feats: torch.Tensor) -> dict:
+    """Phase 19: phase 6's run loaded back, a long-form render and split
+    renders through it, the feature sensitivity, and training on the raw
+    streaming cache; each path's launches checked exactly."""
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.generate.audio2video import react
+    from ssar_tpu_torch.train import evaluate, train as trainer
+    from ssar_tpu_torch.train.data import synthetic_dataset
+
+    log(f"[checkpoint] optional packages on this machine: {optional_packages()}")
+    total = {}
+    args = trainer.build_parser().parse_args(TRAIN_FLAGS)
+    trained = trainer.make_model(args, np.zeros(59, np.float32), np.ones(59, np.float32),
+                                 np.zeros((args.n_latent_split * args.hidden_size, 18, 512), np.float32))
+    trained.load_state_dict(_ckpt_params(trainer._latest_checkpoint(log_dir)))
+    trained = trained.to(dev).eval()
+    _zero_counts()
+    t0 = time.perf_counter()
+    model, cfg = evaluate.load_checkpoint(str(log_dir), device=dev)
+    load_s = time.perf_counter() - t0
+    (lat_a, noise_a), (lat_b, noise_b) = (react(m, feats, torch.Generator(dev).manual_seed(SEED + 4))
+                                          for m in (trained, model))
+    if not (torch.equal(lat_a, lat_b) and all(torch.equal(a, b) for a, b in zip(noise_a, noise_b))):
+        fail("load_checkpoint: the loaded reactor's output differs from the trained one's")
+    if model.envelopes.backbone.__class__ is not trained.envelopes.backbone.__class__ or cfg is not None:
+        fail("load_checkpoint: another model than the run's")
+    _expect("the loaded and the trained reactor on phase 4's features", _counts(), s4d_vandermonde=2 * args.num_layers)
+    _add(total, _counts())
+    log(f"[checkpoint] load_checkpoint of phase 6's run in {load_s:.3f} s: its forward on phase 4's features equals "
+        f"the trained model's bit for bit (latents {tuple(lat_b.shape)}, {len(noise_b)} noise maps)")
+
+    sr = 44100
+    track = synthetic_track(sr, PATCH_SECONDS, section_seconds=8)
+    T = PATCH_SECONDS * FPS
+    sink = FrameSink((1536, 1024))
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    evaluate.generate_longform(str(log_dir), track, sr, gan_config=StyleGAN2Config(), output_size=(1024, 1024),
+                               batch_size=16, device=dev, writer=sink)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    if len(sink.crcs) != T or len(set(sink.crcs)) < T // 2 or not (16 <= sink.y_range[0] <= sink.y_range[1] <= 235):
+        fail(f"generate_longform: {len(sink.crcs)} frames (expected {T}), {len(set(sink.crcs))} distinct, "
+             f"luma {sink.y_range}")
+    _expect("generate_longform", _counts(), sliding_median=4, s4d_vandermonde=args.num_layers)
+    _add(total, _counts())
+    log(f"[checkpoint] generate_longform: {PATCH_SECONDS} s @ 44.1 kHz -> {T} I420 frames 1024x1024 (bf16, batch 16, "
+        f"the synthesizer built inside) in {long_s:.3f} s = {T / long_s:.2f} fps, {PATCH_SECONDS / long_s:.2f}x "
+        f"realtime; peak memory {_peak_gib():.2f} GiB")
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    writers = evaluate.generate_by_data_split(str(log_dir), synthetic_dataset(n_windows=2, n_frames=8 * FPS),
+                                              str(ROOT / "build" / "chip_smoke_runs" / "split"), device=dev)
+    split_s = time.perf_counter() - t0
+    if [w.frames_written for w in writers] != [8 * FPS] * 2:
+        fail(f"generate_by_data_split: {[w.frames_written for w in writers]} frames")
+    _expect("generate_by_data_split", _counts(), s4d_vandermonde=2 * args.num_layers)
+    _add(total, _counts())
+    log(f"[checkpoint] generate_by_data_split: 2 windows of {8 * FPS} frames at 256 px to mp4 in {split_s:.3f} s")
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sens = evaluate.feature_sensitivity(model, feats)
+    sens_s = time.perf_counter() - t0
+    F = feats.shape[1]
+    if len(sens) != F * 4 or not all(math.isfinite(v) and v >= 0 for v in sens.values()):
+        fail(f"feature_sensitivity: {len(sens)} values")
+    _expect("feature_sensitivity", _counts(), s4d_vandermonde=(1 + 4 * F) * args.num_layers)
+    _add(total, _counts())
+    top = sorted(sens.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[checkpoint] feature_sensitivity: {feats.shape[0]} frames x {F} features x 4 perturbations = {1 + 4 * F} "
+        f"forwards in {sens_s:.3f} s ({sens_s / (1 + 4 * F) * 1e3:.2f} ms a forward, one read at the end); largest "
+        f"{[(f'{k[0]}/{k[1]}', round(v, 5)) for k, v in top]}")
+
+    _add(total, raw_cache_run(dev))
+    return total
+
+
+def _study_tracks():
+    return [(f"clip{i}", synthetic_track(STUDY_SR, STUDY_SECONDS, section_seconds=None if i == 0 else 4.0), STUDY_SR)
+            for i in range(STUDY_CLIPS)]
+
+
+@contextlib.contextmanager
+def _timed_resize(acc: list):
+    """The comparison's low-resolution resize, synchronised and timed into `acc`."""
+    from ssar_tpu_torch.metrics import comparison
+
+    saved = comparison.resize
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved(*a, **kw)
+        torch.cuda.synchronize()
+        acc.append(time.perf_counter() - t0)
+        return out
+
+    comparison.resize = timed
+    try:
+        yield
+    finally:
+        comparison.resize = saved
+
+
+def study_path(dev, log_dir: Path) -> dict:
+    """Phase 20: scripts/run_study.py's configuration on the card (a 256 px G
+    with random weights, 16 s clips cut from 6 to 2): the battery and the
+    forward-only pass of four predictors, the scorer's calibration on the four
+    recipes, the AV feature study and its report, the OOD of a rendered clip
+    against the generator through a discriminator's features, and the
+    preliminary study on the study's features; every record present and
+    finite, launches exact."""
+    import shutil
+
+    from ssar_tpu_torch.gan.discriminator import Discriminator
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2
+    from ssar_tpu_torch.metrics import comparison, generate, ood, preliminary, study
+    from ssar_tpu_torch.ops.resize import resize
+    from ssar_tpu_torch.train import evaluate
+    from ssar_tpu_torch.train.losses import audio_reactive_loss
+
+    out = ROOT / "build" / "chip_smoke_runs" / "study"
+    shutil.rmtree(out, ignore_errors=True)
+    total = {}
+    G = StyleGAN2(output_size=(256, 256), config=StyleGAN2Config(resolution=256, max_channels=512), seed=SEED,
+                  device=dev)
+    clips = _study_tracks()
+    reactor, _ = evaluate.load_checkpoint(str(log_dir), device=dev)
+    models = {"random_patch": comparison.RandomGenerator(G, fps=FPS, seed=0),
+              "sashimi_ssabsdiff": comparison.SupervisedSequenceModel(reactor, fps=FPS, G=G),
+              "ssopt": comparison.SelfSupervisedOptimization(fps=FPS, gan_config=G.config, device=dev),
+              "lucid": comparison.LucidSonicBaseline(G, fps=FPS)}
+    T = STUDY_SECONDS * FPS
+
+    resize_s = []
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _timed_resize(resize_s):
+        records = comparison.compare_models("study", models, clips, G, out_dir=str(out))
+    battery_s = time.perf_counter() - t0
+    got = sorted((r["clip"], r["model_name"]) for r in records)
+    if got != sorted((c, m) for c, _, _ in clips for m in models):
+        fail(f"compare_models: records for {got}, expected every (clip, model) pair")
+    for r in records:
+        bad = [k for k, v in r.items() if isinstance(v, float) and not math.isfinite(v)]
+        if bad or len(r) != 1 + 9 * 12 + 3 + 3:
+            fail(f"compare_models {r['clip']}/{r['model_name']}: {len(r)} entries, non-finite {bad[:5]}")
+    n = len(clips)
+    _expect("the study's battery", _counts(), sliding_median=n * sum(PREDICT_B1[m] + SCORE_B1 for m in models),
+            absdiff=n * len(models) * SCORE_B2, s4d_vandermonde=n * 4)
+    _add(total, _counts())
+    log(f"[study] battery: {len(records)} records ({n} clips x {len(models)} models, {T} frames each, 256 px rendered, "
+        f"128 px scored) in {battery_s:.1f} s; peak memory {_peak_gib():.2f} GiB; the low-resolution resize "
+        f"{sum(resize_s):.3f} s over {len(resize_s)} batches")
+    for r in records:
+        log(f"[study]   {r['clip']}/{r['model_name']}: correlation {r['correlation']:.4f}, latent correlation "
+            f"{r['latent_correlation']:.4f}, mean latent step {r['mean_latent_step']:.4f}, pixel step "
+            f"{r['mean_pixel_step']:.4f}; {r['wall_s']} s")
+    log(f"[study] random patch music information: {models['random_patch'].mir_seconds} s a clip; ssopt losses "
+        f"{[round(c[0], 3) for c in models['ssopt'].loss_curves]} -> {[round(c[-1], 3) for c in models['ssopt'].loss_curves]}")
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    speed = comparison.compare_models("runtimes", models, clips, G, out_dir=str(out), forward_only=True)
+    if len(speed) != n * len(models) or not all(r["time"] > 0 for r in speed):
+        fail(f"forward-only pass: {len(speed)} records")
+    _expect("the forward-only pass", _counts(),
+            sliding_median=n * sum(b for m, b in PREDICT_B1.items() if m != "random_patch"), s4d_vandermonde=n * 4)
+    _add(total, _counts())
+    log(f"[study] forward only ({time.perf_counter() - t0:.1f} s): " + ", ".join(
+        f"{r['clip']}/{r['model_name']} {r['n'] / r['time']:.1f} frames/s" for r in speed))
+
+    # the scorer's calibration on the first clip: the four recipes at 256 px, resized to 128 as run_study does,
+    # scored with the study's features (also the AV study's pairs)
+    clip_name, audio, sr = clips[0]
+    cache = out / "features"
+    pairs, calib = [], {}
+    _zero_counts()
+    t0 = time.perf_counter()
+    for recipe in generate.CORRELATION_RECIPES:
+        video = generate.render_correlation_clip(recipe, audio, sr, G, fps=FPS, seed=7)
+        video128 = resize(video.permute(0, 2, 3, 1), (video.shape[0], 128, 128, 3), method="bilinear")
+        video128 = video128.permute(0, 3, 1, 2)
+        afeats, vfeats = study.extract_av_features(audio, sr, video128, cache_stem=str(cache / recipe), device=dev)
+        a = {k: v[None] for k, v in afeats.items()}
+        v = {k: f[None] for k, f in vfeats.items()}
+        rec = {"overall": float(1 - audio_reactive_loss(a, v)[0])}
+        rec["chroma_channel"] = float(np.mean([float(1 - audio_reactive_loss([a[an]], [v[vn]])[0])
+                                               for an in ("chromagram", "tonnetz") for vn in ("rgb_hist", "hsv_hist")]))
+        calib[recipe] = rec
+        pairs.append((recipe, audio, sr, video128))
+    _expect("the calibration", _counts(), sliding_median=sum(RECIPE_B1.values()) + 4 * SCORE_B1, absdiff=4 * SCORE_B2)
+    _add(total, _counts())
+    if not all(math.isfinite(x) for r in calib.values() for x in r.values()):
+        fail(f"calibration: {calib}")
+    log(f"[study] calibration ({time.perf_counter() - t0:.1f} s): " + ", ".join(
+        f"{k} overall {r['overall']:.4f} chroma {r['chroma_channel']:.4f}" for k, r in calib.items()))
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    plots = optional_packages()["matplotlib"]   # the report is figures: written where matplotlib is installed
+    av = study.av_feature_study(pairs, out_dir=str(out / "report") if plots else None,
+                                groups={r: r for r, *_ in pairs}, cache_dir=str(cache), device=dev)
+    _expect("av_feature_study (its features cached)", _counts())
+    if len(av) != 4 * len(study.STUDY_MEASURES) * (9 * 12 + 1) or not all(math.isfinite(r["value"]) for r in av):
+        fail(f"av_feature_study: {len(av)} records, non-finite {sum(not math.isfinite(r['value']) for r in av)}")
+    stats, best = study.group_stats(av), study.extrema(av, n=1)
+    if len(stats) != 4 * len(study.STUDY_MEASURES) * (9 * 12 + 1) or len(best) != 4:
+        fail(f"av_feature_study statistics: {len(stats)} cells, extrema of {len(best)} groups")
+    report = sorted(p.name for p in (out / "report").iterdir()) if plots else "skipped: matplotlib is not installed"
+    log(f"[study] av_feature_study: {len(av)} records in {time.perf_counter() - t0:.1f} s; concat procrustes by "
+        f"recipe {[(g, round(d['best'][0][0], 4)) for g, d in best.items()]}; report {report}")
+
+    torch.manual_seed(SEED)
+    D = Discriminator(resolution=128, channel_multiplier=1).to(dev)
+    t0 = time.perf_counter()
+    scores = ood.video_vs_generator(pairs[0][3], G, n_samples=256, extractor=ood.discriminator_extractor(D))
+    if not all(math.isfinite(v) for v in scores.values()):
+        fail(f"video_vs_generator: {scores}")
+    log(f"[study] video_vs_generator (256 samples, a random 128 px discriminator's features) in "
+        f"{time.perf_counter() - t0:.1f} s: " + ", ".join(f"{k} {v:.4g}" for k, v in scores.items()))
+
+    feats = [study.extract_av_features(audio, sr, p[3], cache_stem=str(cache / p[0]), device=dev) for p in pairs]
+    groups = {"calibration": {"video_spectrogram": torch.stack([v["video_spectrogram"] for _, v in feats]),
+                              "audio_feat": torch.stack([a["mfcc"] for a, _ in feats]),
+                              "audio_chroma": torch.stack([a["chromagram"] for a, _ in feats]),
+                              "video_onsets": torch.stack([v["video_flow_onsets"][:, 0] for _, v in feats]),
+                              "audio_onsets": torch.stack([a["onsets"][:, 0] for a, _ in feats])}}
+    groups = {g: {c: v.cpu().numpy() for c, v in cols.items()} for g, cols in groups.items()}
+    t0 = time.perf_counter()
+    aligned, misaligned = preliminary.preliminary_study(groups, ["video_spectrogram"], ["audio_feat"], n_samples=4,
+                                                        out_dir=str(out / "preliminary"), device=dev)
+    rows = aligned + misaligned
+    if len(rows) != 2 or not all(math.isfinite(v) for r in rows for k, v in r.items() if k != "group"):
+        fail(f"preliminary_study: {rows}")
+    log(f"[study] preliminary_study ({time.perf_counter() - t0:.1f} s): aligned "
+        + ", ".join(f"{k} {v:.4g}" for k, v in aligned[0].items() if k != "group"))
+    return total
+
+
+def reference_study(dev):
+    """Phase 21: the checkpoint and comparison paths at a small size in float32
+    (a 64 px G, a 4 s clip) on the card and on the CPU, with the same weights
+    and draws: each predictor's latents within 1e-3 of their largest
+    magnitude and its ``evaluate_clip`` record within 2e-3 absolute.  The
+    optimizer runs 0 steps here (its set-up, envelopes and decoder): Adam's
+    first step moves every coefficient by +-lr with the sign of its
+    gradient, which round-off decides for the smallest ones (its latents
+    moved 7.5e-3 apart after 2 steps; its step is phase 10's check), and its
+    record is held complete and finite only (the optimizer's nearly static
+    video makes the correlation magnify round-off).  ``feature_sensitivity``
+    within 1e-4 of its largest delta, ``ood.compute`` with the default extractor
+    within 1e-4 relative, one calibration recipe's frames within 1e-3."""
+    import types
+
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Mapper, StyleGAN2Synthesizer
+    from ssar_tpu_torch.generate import mir
+    from ssar_tpu_torch.metrics import comparison, generate, ood
+    from ssar_tpu_torch.models.reactor import LatentNoiseReactor
+    from ssar_tpu_torch.train import evaluate
+    from ssar_tpu_torch.utils.device import full_precision
+
+    sr = 1024 * FPS
+    audio = two_part_track(sr, 4.0)
+    T = len(audio) // 1024
+    cfg = StyleGAN2Config(resolution=64, max_channels=64)
+    weights = StyleGAN2Mapper(config=cfg, seed=SEED, device="cpu").params
+
+    def small_g(device, params):
+        mapper = StyleGAN2Mapper(config=cfg, device=device)
+        mapper.params = params
+        return types.SimpleNamespace(config=cfg, mapper=mapper, synthesizer=StyleGAN2Synthesizer(
+            config=cfg, dtype=torch.float32, device=device, params=params))
+
+    G_cpu, G_card = small_g(torch.device("cpu"), weights), small_g(dev, _to(weights, dev))
+    music = mir.retrieve_music_information(audio, sr, device="cpu")
+    torch.manual_seed(SEED)
+    palette = np.random.RandomState(SEED).randn(3 * 8, cfg.n_latent, 512).astype(np.float32)
+    # the fixed decoder divides each split's envelopes by their sum, which magnifies round-off near a sum of 0
+    # (ROADMAP C): the guard keeps |sum| >= 0.1 and the palette envelopes' biases are lifted, as the CPU tests do
+    reactor = LatentNoiseReactor(np.zeros(59), np.ones(59), palette, backbone="sashimi", hidden_size=8, num_layers=2,
+                                 env_guard_eps=0.1)
+    with torch.no_grad():
+        reactor.envelopes.out.bias[: 3 * 8] += 1.0
+    rs = np.random.RandomState(SEED + 11)
+    base = [rs.randn(1, T, 2 ** (i + 2), 2 ** (i + 2)).astype(np.float32) for i in range(4)]
+    opt_init = rs.rand(T, 27 + 10).astype(np.float32)
+    opt_draws = {2 ** (i + 2): rs.randn(T, 2 ** (i + 2), 2 ** (i + 2)).astype(np.float32) for i in range(5)}
+
+    def predictors(G, device):
+        model = LatentNoiseReactor(np.zeros(59), np.ones(59), palette, backbone="sashimi", hidden_size=8,
+                                   num_layers=2, env_guard_eps=0.1)
+        model.load_state_dict(reactor.state_dict())
+        model = model.to(device)
+        fixed_base = [torch.as_tensor(b, device=device) for b in base]
+        model.decoder.forward = lambda x, base_noise=None, generator=None, _f=model.decoder.forward: _f(
+            x, base_noise=fixed_base)
+        patch = comparison.RandomGenerator(G, fps=FPS, seed=3)
+        patch._mir = lambda a, s: (_to(music[0], device), {k: v.to(device) for k, v in music[1].items()}, music[2])
+        return {"random_patch": patch, "reactor": comparison.SupervisedSequenceModel(model, fps=FPS),
+                "ssopt": comparison.SelfSupervisedOptimization(fps=FPS, n_steps=0, gan_config=cfg, device=device),
+                "lucid": comparison.LucidSonicBaseline(G, fps=FPS)}
+
+    class Kept:
+        """A predictor that keeps its last prediction's latents."""
+
+        def __init__(self, predictor):
+            self.predictor, self.latents = predictor, None
+
+        def predict(self, audio_, sr_):
+            latents, noise = self.predictor.predict(audio_, sr_)
+            self.latents = torch.as_tensor(latents).cpu()
+            return latents, noise
+
+    records, latents = {}, {}
+    with _banks_from_the_cpu(), full_precision(), _injected_draws(opt_init, opt_draws):
+        for tag, device, G in (("card", dev, G_card), ("cpu", torch.device("cpu"), G_cpu)):
+            kept = {name: Kept(p) for name, p in predictors(G, device).items()}
+            records[tag] = {name: comparison.evaluate_clip(G, p, audio, sr) for name, p in kept.items()}
+            latents[tag] = {name: p.latents for name, p in kept.items()}
+        worst = {}
+        for name, want in records["cpu"].items():
+            got = records["card"][name]
+            if got.keys() != want.keys() or not all(math.isfinite(v) for v in got.values()):
+                fail(f"evaluate_clip on the card ({name}): {len(got)} entries, not all finite")
+            lat_err = float((latents["card"][name] - latents["cpu"][name]).abs().max()
+                            / latents["cpu"][name].abs().max())
+            err = max(abs(got[k] - want[k]) for k in want)
+            worst[name] = (lat_err, err)
+            # the optimizer's video barely moves (mean pixel step ~2e-3 in phase 20), and the procrustes
+            # correlation of near-constant features magnifies its latents' round-off: its latents are held
+            if not (lat_err <= 1e-3 and (name == "ssopt" or err <= 2e-3)):
+                fail(f"evaluate_clip card vs CPU ({name}): latents {lat_err:.3g} of their largest magnitude, "
+                     f"a score {err:.3g}")
+
+        feats = torch.as_tensor(np.random.RandomState(SEED + 12).randn(T, 59).astype(np.float32))
+        sens = [np.array(list(evaluate.feature_sensitivity(predictors(G_cpu, device)["reactor"].model, feats).values()))
+                for device in (dev, torch.device("cpu"))]
+        sens_err = float(np.abs(sens[0] - sens[1]).max() / np.abs(sens[1]).max())
+        if not sens_err <= 1e-4:
+            fail(f"feature_sensitivity card vs CPU: {sens_err:.3g} of the largest delta")
+
+        rs = np.random.RandomState(SEED + 13)
+        real, fake = rs.rand(24, 3, 64, 64).astype(np.float32), rs.rand(24, 64, 64, 3).astype(np.float32) ** 2
+        o_card = ood.compute(real, fake, allow_random_extractor=True, device=dev)
+        o_cpu = ood.compute(real, fake, allow_random_extractor=True, device="cpu")
+        ood_err = max(abs(o_card[k] - o_cpu[k]) / max(abs(o_cpu[k]), 1e-12) for k in o_cpu)
+        if not ood_err <= 1e-4:
+            fail(f"ood.compute card vs CPU: {o_card} vs {o_cpu}")
+
+        clip_card = generate.render_correlation_clip("high_both", audio, sr, G_card, fps=FPS, seed=7).cpu()
+        clip_cpu = generate.render_correlation_clip("high_both", audio, sr, G_cpu, fps=FPS, seed=7)
+        clip_err = float((clip_card - clip_cpu).abs().max())
+        if not clip_err <= 1e-3:
+            fail(f"render_correlation_clip card vs CPU: {clip_err:.3g}")
+    log(f"[reference] comparison card vs CPU (64 px, 4 s, fp32): evaluate_clip latents / worst score error "
+        + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}" for k, v in worst.items())
+        + f"; feature_sensitivity {sens_err:.3g}; ood.compute {ood_err:.3g}; high_both recipe frames {clip_err:.3g}")
 
 
 def _to(tree, device):

@@ -3,13 +3,15 @@
 Counterpart of ``ssar_tpu/ops/gaussian.py``: a 1-D gaussian of radius
 ``min(int(sigma * 4), 3 * T)`` convolved along axis 0, circular padding by
 default, as one depthwise ``conv1d`` with every non-time element folded into
-the batch.
+the batch.  The convolution runs in full float32 on the card (no TF32), as the
+JAX filter pins ``Precision.HIGHEST``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import full_precision
 from .median import pad_indices, reflect_indices
 
 _INDEX_MODE = {"circular": "wrap", "replicate": "edge"}
@@ -57,7 +59,8 @@ def gaussian_filter(x: torch.Tensor, sigma: float, mode: str = "circular", causa
     else:
         flat = _pad(flat, radius, mode)
 
-    out = F.conv1d(flat, kernel[None, None, :])
+    with full_precision():
+        out = F.conv1d(flat, kernel[None, None, :])
     out = out[:, 0, :].T.reshape(in_shape).to(x.dtype)
     if in_ndim <= 2:
         while out.ndim > 1 and out.shape[-1] == 1:

@@ -9,10 +9,13 @@ same arrays as the JAX package):
 - the per-file 80/20 split with RandomState(42);
 - ``WindowDataset``: shuffled epoch iterators, or index vectors for the
   device-resident path (``to_device`` puts its arrays on the card);
-- ``synthetic_dataset`` backs the smoke paths without a corpus on disk.
-
-The raw streaming cache (``write_raw_cache`` / ``MmapWindowDataset``, read by
-the native window loader) and the grain loader are not ported yet.
+- ``synthetic_dataset`` backs the smoke paths without a corpus on disk;
+- the raw streaming cache: ``write_raw_cache`` stores unwindowed
+  track-concatenated arrays and the window starts, and ``MmapWindowDataset``
+  gathers each batch's windows from memory maps through the C++ loader
+  (``utils/native.py``); ``load_cached`` opens either layout;
+- ``grain_loader``: a grain pipeline over either cache, sharded by the
+  ``torch.distributed`` rank (the prefetch iterator where grain is missing).
 """
 from __future__ import annotations
 
@@ -115,6 +118,10 @@ class WindowDataset:
             rng.shuffle(idx)
             for i in range(0, len(idx) - batch_size + 1, batch_size):
                 yield idx[i : i + batch_size]
+
+    def window(self, i: int) -> tuple:
+        """The six arrays of window `i`."""
+        return tuple(np.asarray(a[i]) for a in self.arrays)
 
     def batches_from(self, idx_stream):
         """Materialise batches for a stream of index vectors (the resume path)."""
@@ -239,14 +246,130 @@ def preprocess_directory(in_dir: str, cache_dir: str, dur: int = 8, fps: int = 2
     return meta
 
 
-def load_cached(cache_dir: str, split: str) -> WindowDataset:
-    """Windowed-shard cache (``preprocess_directory``) -> WindowDataset."""
+def _shard_options(pygrain):
+    """This process's shard: the ``torch.distributed`` rank of its world size
+    when a process group is up, else shard 0 of 1."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return pygrain.ShardOptions(dist.get_rank(), dist.get_world_size())
+    return pygrain.ShardOptions(0, 1)
+
+
+def grain_loader(cache_dir: str, split: str, batch_size: int, seed: int = 0, worker_count: int = 0,
+                 shuffle: bool = True):
+    """Grain input pipeline over a cache (either layout): tuples (features,
+    latents, n4, n8, n16, n32) of stacked numpy batches, each process reading
+    its shard.  Falls back to the thread-prefetch iterator when grain is not
+    importable."""
+    try:
+        import grain.python as pygrain
+    except ImportError:
+        ds = load_cached(cache_dir, split)
+        yield from prefetch(ds.batches(batch_size, seed=seed, shuffle=shuffle))
+        return
+
+    ds = load_cached(cache_dir, split)
+
+    class WindowSource(pygrain.RandomAccessDataSource):
+        def __len__(self):
+            return len(ds)
+
+        def __getitem__(self, idx):
+            return ds.window(idx)
+
+    sampler = pygrain.IndexSampler(num_records=len(ds), shuffle=shuffle, seed=seed,
+                                   shard_options=_shard_options(pygrain), num_epochs=None)
+    loader = pygrain.DataLoader(data_source=WindowSource(), sampler=sampler, worker_count=worker_count,
+                                operations=[pygrain.Batch(batch_size=batch_size, drop_remainder=True)])
+    yield from loader
+
+
+def load_cached(cache_dir: str, split: str):
+    """Windowed-shard cache (``preprocess_directory``) -> WindowDataset; raw
+    streaming cache (``write_raw_cache``) -> MmapWindowDataset."""
     cache_dir = Path(cache_dir)
     if (cache_dir / f"{split}_starts.npy").exists():
-        raise NotImplementedError("the raw streaming cache (MmapWindowDataset, native loader) is not ported "
-                                  "yet; preprocess the corpus into windowed shards")
+        return MmapWindowDataset(cache_dir, split)
     return WindowDataset(
         np.load(cache_dir / f"{split}_features.npy", mmap_mode="r"),
         np.load(cache_dir / f"{split}_latents.npy", mmap_mode="r"),
         [np.load(cache_dir / f"{split}_noise{s}.npy", mmap_mode="r") for s in (4, 8, 16, 32)],
     )
+
+
+def write_raw_cache(cache_dir, split: str, features: np.ndarray, latents: np.ndarray, noises: list, L: int,
+                    track_lengths: list[int], overlap: int = 4) -> None:
+    """Streaming cache layout: unwindowed, track-concatenated float32 arrays
+    plus an int64 index of window starts (stride L // overlap, never crossing
+    a track boundary): 4x less disk than the windowed shards."""
+    cache_dir = Path(cache_dir)
+    cache_dir.mkdir(parents=True, exist_ok=True)
+    np.save(cache_dir / f"{split}_features_raw.npy", np.ascontiguousarray(features, np.float32))
+    np.save(cache_dir / f"{split}_latents_raw.npy", np.ascontiguousarray(latents, np.float32))
+    for s, nz in zip((4, 8, 16, 32), noises):
+        np.save(cache_dir / f"{split}_noise{s}_raw.npy", np.ascontiguousarray(nz, np.float32))
+    starts, off = [], 0
+    stride = L // overlap
+    for T in track_lengths:
+        starts.extend(range(off, off + max(T - L, 0) + 1, stride))
+        off += T
+    np.save(cache_dir / f"{split}_starts.npy", np.asarray(starts, np.int64))
+    (cache_dir / f"{split}_window.json").write_text(json.dumps({"L": L}))
+
+
+class MmapWindowDataset:
+    """On-demand windowed dataset over the raw streaming cache: each batch is
+    gathered from the memory-mapped files by the native loader, so a corpus
+    larger than RAM streams at copy speed.  It has the index-stream interface
+    of ``WindowDataset`` (the trainer streams it from the host)."""
+
+    def __init__(self, cache_dir, split: str):
+        from ..utils.native import MmapWindows
+
+        cache_dir = Path(cache_dir)
+        self.L = json.loads((cache_dir / f"{split}_window.json").read_text())["L"]
+        self.starts = np.load(cache_dir / f"{split}_starts.npy")
+        self.features = MmapWindows(cache_dir / f"{split}_features_raw.npy", self.L)
+        self.latents = MmapWindows(cache_dir / f"{split}_latents_raw.npy", self.L)
+        self.noises = [MmapWindows(cache_dir / f"{split}_noise{s}_raw.npy", self.L) for s in (4, 8, 16, 32)]
+
+    def __len__(self):
+        return len(self.starts)
+
+    def gather(self, sel) -> tuple:
+        """The six arrays of the windows with indices `sel`."""
+        starts = self.starts[np.asarray(sel)]
+        return (self.features.gather(starts), self.latents.gather(starts), *[n.gather(starts) for n in self.noises])
+
+    def window(self, i: int) -> tuple:
+        """The six arrays of window `i`, without the batch axis."""
+        return tuple(a[0] for a in self.gather([int(i)]))
+
+    def index_batches(self, batch_size: int, seed: int = 0):
+        """Infinite stream of index vectors, in ``WindowDataset``'s order."""
+        return WindowDataset.index_batches(self, batch_size, seed)
+
+    def batches_from(self, idx_stream):
+        """Gather the batches of a stream of index vectors."""
+        for sel in idx_stream:
+            yield self.gather(sel)
+
+    def batches(self, batch_size: int, seed: int = 0, shuffle: bool = True, drop_last: bool = True,
+                loop: bool = True):
+        """Batch generator, infinite when ``loop``, one epoch otherwise; a
+        split smaller than ``batch_size`` is wrap-padded to one full batch, as
+        ``WindowDataset.batches`` pads it."""
+        idx = np.arange(len(self))
+        rng = np.random.RandomState(seed)
+        if len(idx) == 0:
+            raise ValueError("empty dataset")
+        if len(idx) < batch_size:
+            idx = np.tile(idx, int(np.ceil(batch_size / len(idx))))[:batch_size]
+        while True:
+            if shuffle:
+                rng.shuffle(idx)
+            for i in range(0, len(idx) - (batch_size - 1 if drop_last else 0), batch_size):
+                yield self.gather(idx[i : i + batch_size])
+            if not loop:
+                return

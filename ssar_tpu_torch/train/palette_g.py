@@ -58,24 +58,28 @@ def _device_of(params: dict) -> torch.device:
 
 
 @torch.no_grad()
-def palette_identity_spread(params: dict, config: sg.StyleGAN2Config, n: int = 16, seed: int = 7) -> float:
+def palette_identity_spread(params: dict, config: sg.StyleGAN2Config, n: int = 16, seed: int = 7,
+                            dtype=torch.bfloat16) -> float:
     """Mean pairwise distance between the mean colours of n rendered random
-    latents (a diagnostic: a random G already scores high)."""
+    latents (a diagnostic: a random G already scores high); the synthesis
+    runs in `dtype`."""
     z = keys.normal(keys.PRNGKey(seed), (n, config.style_dim), device=_device_of(params))
-    mean_col = _render(params, config, sg.mapping(params, z, config)).mean(dim=(1, 2))
+    mean_col = _render(params, config, sg.mapping(params, z, config), dtype).mean(dim=(1, 2))
     d = torch.linalg.vector_norm(mean_col[:, None] - mean_col[None], dim=-1)
     return float(d.sum() / (n * (n - 1)))
 
 
 @torch.no_grad()
-def palette_target_alignment(params: dict, config: sg.StyleGAN2Config, n: int = 32, seed: int = 7) -> float:
+def palette_target_alignment(params: dict, config: sg.StyleGAN2Config, n: int = 32, seed: int = 7,
+                             dtype=torch.bfloat16) -> float:
     """Correlation between the rendered and the procedural targets' mean
-    colours over n random latents (~0 for a random G, -> 1 as it learns)."""
+    colours over n random latents (~0 for a random G, -> 1 as it learns);
+    the synthesis runs in `dtype`."""
     dev = _device_of(params)
     P = target_basis(config.style_dim, device=dev)
     z = keys.normal(keys.PRNGKey(seed), (n, config.style_dim), device=dev)
     w = sg.mapping(params, z, config)
-    got = _render(params, config, w).mean(dim=(1, 2)).double().cpu().numpy().ravel()
+    got = _render(params, config, w, dtype).mean(dim=(1, 2)).double().cpu().numpy().ravel()
     want = procedural_targets(w, P, config.resolution).mean(dim=(1, 2)).double().cpu().numpy().ravel()
     got, want = got - got.mean(), want - want.mean()
     return float(np.dot(got, want) / (np.linalg.norm(got) * np.linalg.norm(want) + 1e-12))

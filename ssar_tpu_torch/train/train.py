@@ -15,12 +15,17 @@ Counterpart of ``ssar_tpu/train/train.py``:
 - metrics as CSV, and TensorBoard scalars when tensorboardX is importable;
 - the Frechet Context Distance at each eval window (``--fcd``, on by default
   as in the JAX trainer): a causal-CNN context encoder fitted once on the
-  validation latents (``metrics/context_fid.py``), logged as ``Eval/FCD``.
+  validation latents (``metrics/context_fid.py``), logged as ``Eval/FCD``;
+- at each eval window, ``diagnostics_<it>.png``: the time-autocorrelation of
+  the first validation window's inputs, predicted latents and targets
+  (``utils/plot.py``; skipped with a message where matplotlib is missing);
+- ``--cache_dir`` takes either cache layout: windowed shards live on the card
+  when they fit, the raw streaming cache is gathered from its memory maps on
+  the host each step.
 
 Runs on the CUDA device unless ``--device cpu`` (or ``device="cpu"``) is given.
-Not ported yet: the JAX trainer's K-step ``train_step_scan`` (its fusion of
-steps against its runtime's dispatch latency) and the eval-time
-autocorrelation plots.
+The JAX trainer's K-step ``train_step_scan`` (its fusion of steps against its
+runtime's dispatch latency) has no counterpart: the port steps one at a time.
 
     python -m ssar_tpu_torch.train.train --smoke --decoder fixed --backbone sashimi --device cpu
 """
@@ -365,17 +370,18 @@ def main(argv=None):
         start_it = int(ckpt["step"])
         print(f"resumed from {args.resume} at example {start_it}")
 
-    data_bytes = sum(a.nbytes for a in train_ds.arrays)
+    # windowed shards go to the card when they fit; the raw streaming cache stays memory-mapped on the host
+    data_bytes = sum(a.nbytes for a in train_ds.arrays) if hasattr(train_ds, "arrays") else None
     n_skip = start_it // args.batch_size  # replay the index stream to the resumed position
     idx_stream = train_ds.index_batches(args.batch_size, seed=args.seed)
     for _ in range(n_skip):
         next(idx_stream)
-    device_data = train_ds.to_device(device) if data_bytes < 4e9 else None
+    device_data = train_ds.to_device(device) if data_bytes is not None and data_bytes < 4e9 else None
     if device_data is None:
         batches = prefetch(train_ds.batches_from(idx_stream))
+    size = f"{data_bytes/1e6:.0f} MB" if data_bytes is not None else f"raw cache, {len(train_ds)} windows"
     print(f"training: {args.n_examples} examples, batch {args.batch_size}, {n_frames} frames/window, data "
-          f"{f'resident on {device}' if device_data is not None else 'host-streamed'} ({data_bytes/1e6:.0f} MB)",
-          flush=True)
+          f"{f'resident on {device}' if device_data is not None else 'host-streamed'} ({size})", flush=True)
 
     # the FCD context encoder, fitted once on real validation latent sequences
     fcd_encode = fcd_real = None
@@ -384,7 +390,8 @@ def main(argv=None):
             from ..metrics.context_fid import context_fid, train_encoder
 
             n_fit = min(len(val_ds), 64)
-            fcd_real = np.asarray(val_ds.latents[:n_fit]).reshape(n_fit, n_frames, -1).astype(np.float32)
+            fcd_real = np.asarray(next(val_ds.batches(n_fit, shuffle=False))[1])
+            fcd_real = fcd_real.reshape(n_fit, n_frames, -1).astype(np.float32)
             fcd_encode = train_encoder(fcd_real, n_steps=40, features=16, embed_dim=32, device=device)
         except Exception as e:  # the FCD never stops training
             print(f"FCD encoder unavailable: {e}")
@@ -417,6 +424,25 @@ def main(argv=None):
             print(f"{what}: {out}")
         except Exception as e:
             print(f"{what} skipped: {type(e).__name__}: {e}")
+
+    def diagnostics(it_tag: int):
+        """Autocorrelation grids of the first validation window: one forward
+        of a full validation batch (noise seeded 0), then the plot; a plot
+        that fails is reported and never stops training."""
+        vb = next(val_ds.batches(args.batch_size, shuffle=False))
+        model.eval()
+        with torch.no_grad():
+            feats = torch.as_tensor(np.asarray(vb[0]), dtype=torch.float32).to(device)
+            lat, _ = model(feats, generator=torch.Generator(device).manual_seed(0))
+        lat = lat[0].reshape(lat.shape[1], -1).cpu().numpy()
+        try:
+            from ..utils.plot import autocorrelation_grid
+
+            autocorrelation_grid({"inputs": np.asarray(vb[0][0]), "latents": lat,
+                                  "targets": np.asarray(vb[1][0]).reshape(vb[1].shape[1], -1)},
+                                 str(log_dir / f"diagnostics_{it_tag:08d}.png"))
+        except Exception as e:  # matplotlib missing or a plot error: diagnostics never stop training
+            print(f"diagnostics skipped: {type(e).__name__}: {e}")
 
     t0 = time.time()
     val_loss = val_loss_median = float("nan")
@@ -456,6 +482,7 @@ def main(argv=None):
                     writer.scalar("Eval/FCD", context_fid(fcd_encode, fcd_real[: len(fake)], fake), it)
                 except Exception as e:
                     print(f"FCD skipped: {e}")
+            diagnostics(it)
             rate = (it + args.batch_size - start_it) / (time.time() - t0)
             train_loss = float(np.mean(losses)) if losses else float("nan")
             print(f"iter {it}  train {train_loss:.4f}  val {val_loss:.4f}  {rate:.1f} ex/s", flush=True)

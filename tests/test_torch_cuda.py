@@ -471,3 +471,52 @@ def test_trainer_steps_on_the_card_match_the_cpu(cuda_device, cpu_draws):
                 if isinstance(want, list):
                     got = np.asarray(card[k])
                     assert np.all(np.abs(got - want) <= 1e-4 * np.abs(np.asarray(want)) + 1e-6), (name, k, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sigma", [((192, 59), 2.0), ((1440, 12), 20.0), ((96, 3, 16, 16), 5.0),
+                                         ((48, 1, 64, 64), 3.0)])
+def test_gaussian_filter_runs_in_full_float32_with_tf32_allowed(cuda_device, shape, sigma):
+    """Fault C4: with TF32 explicitly allowed for cuDNN, ``gaussian_filter`` on
+    the card stays within 1e-6 of float64 on the CPU, relative to the largest
+    output (TF32 keeps ~3 digits), and leaves the flag as it found it."""
+    from ssar_tpu_torch.ops.gaussian import gaussian_filter
+
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    want = gaussian_filter(x.double(), sigma)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = gaussian_filter(x.to(cuda_device), sigma)
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    err = float((got.cpu().double() - want).abs().max() / want.abs().max())
+    assert got.dtype == torch.float32 and err <= 1e-6, err
+
+
+@pytest.mark.cuda
+def test_raw_cache_batches_and_checkpoint_on_the_card(cuda_device, tmp_path):
+    """The raw streaming cache feeds the trainer on the card, and a run's
+    checkpoint loads back to the same outputs as the model it holds."""
+    import numpy as np
+
+    from ssar_tpu_torch.train import data, evaluate, train
+
+    rng = np.random.RandomState(0)
+    T = 120
+    for split in ("train", "val"):
+        data.write_raw_cache(tmp_path / "cache", split, rng.randn(T, 59), rng.randn(T, 18, 512),
+                             [rng.randn(T, s, s) for s in (4, 8, 16, 32)], 48, [T])
+    np.save(tmp_path / "cache" / "train_mean.npy", np.zeros(59, np.float32))
+    np.save(tmp_path / "cache" / "train_std.npy", np.ones(59, np.float32))
+    flags = ["--decoder", "fixed", "--backbone", "sashimi", "--loss", "ssabsdiff", "--hidden_size", "4",
+             "--num_layers", "1", "--duration", "2", "--batch_size", "4", "--n_examples", "8", "--no-render_at_ckpt",
+             "--no-fcd", "--cache_dir", str(tmp_path / "cache"), "--out_dir", str(tmp_path / "runs")]
+    log_dir, val = train.main(flags)
+    assert np.isfinite(val)
+    model, _ = evaluate.load_checkpoint(str(log_dir), device=cuda_device)
+    x = torch.randn(2, 48, 59, device=cuda_device)
+    a, _ = model(x, generator=torch.Generator(cuda_device).manual_seed(1))
+    b, _ = model(x, generator=torch.Generator(cuda_device).manual_seed(1))
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())

@@ -132,7 +132,11 @@ def test_port_imports_nothing_of_jax():
             "ssar_tpu_torch/models/psagan.py", "ssar_tpu_torch/models/selfsupervised.py",
             "ssar_tpu_torch/gan/discriminator.py", "ssar_tpu_torch/metrics/context_fid.py",
             "ssar_tpu_torch/metrics/ood.py", "ssar_tpu_torch/train/trainers.py",
-            "ssar_tpu_torch/train/latent_augmenter.py", "ssar_tpu_torch/train/palette_g.py"} <= names
+            "ssar_tpu_torch/train/latent_augmenter.py", "ssar_tpu_torch/train/palette_g.py",
+            "ssar_tpu_torch/train/evaluate.py", "ssar_tpu_torch/utils/native.py", "ssar_tpu_torch/utils/plot.py",
+            "ssar_tpu_torch/metrics/analysis.py", "ssar_tpu_torch/metrics/preliminary.py",
+            "ssar_tpu_torch/metrics/generate.py", "ssar_tpu_torch/metrics/comparison.py",
+            "ssar_tpu_torch/metrics/study.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -244,3 +244,35 @@ def test_trainers_raise_without_cuda(monkeypatch):
         tt.train_stylevideogan(np.zeros((2, 6, 2, 512), np.float32), n_steps=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         tpg.train_calibration_g(ts.StyleGAN2Config(resolution=8, max_channels=8), n_steps=1)
+
+
+@pytest.mark.parametrize("fn,n", [("palette_identity_spread", 6), ("palette_target_alignment", 8)])
+def test_palette_diagnostics_match_jax(monkeypatch, fn, n):
+    """Both diagnostics in float32 on a random 32 px G, JAX's z injected."""
+    jax_keys(monkeypatch)
+    monkeypatch.setattr(jpg, "jnp", _Float32Numpy())
+    cfg_j, cfg_t = js.StyleGAN2Config(resolution=32, max_channels=16), ts.StyleGAN2Config(resolution=32,
+                                                                                        max_channels=16)
+    gp = np_tree(js.init_generator(jax.random.PRNGKey(0), cfg_j))
+    want = getattr(jpg, fn)(jax.tree_util.tree_map(jnp.asarray, gp), cfg_j, n=n, seed=3)
+    got = getattr(tpg, fn)(ts.params_from_jax(gp), cfg_t, n=n, seed=3, dtype=torch.float32)
+    assert abs(got - want) <= 1e-5 * max(1.0, abs(want)), (got, want)
+
+
+def test_palette_target_alignment_of_the_calibration_g_matches_jax(monkeypatch):
+    """The committed calibration G (docs/study/calibration_g.npz, 256 px): the
+    port's alignment against the JAX package's on the same file, float32
+    synthesis, 4 latents (JAX's z injected)."""
+    from pathlib import Path
+
+    from ssar_tpu_torch.gan.convert import load_npz
+
+    path = Path(__file__).resolve().parents[1] / "docs" / "study" / "calibration_g.npz"
+    jax_keys(monkeypatch)
+    monkeypatch.setattr(jpg, "jnp", _Float32Numpy())
+    cfg = dict(resolution=256, max_channels=128)
+    j_convert = importlib.import_module("ssar_tpu.gan.convert")
+    want = jpg.palette_target_alignment(j_convert.load_npz(str(path)), js.StyleGAN2Config(**cfg), n=4)
+    got = tpg.palette_target_alignment(load_npz(str(path)), ts.StyleGAN2Config(**cfg), n=4, dtype=torch.float32)
+    assert abs(got - want) <= 1e-4, (got, want)
+    assert want > 0.5   # the trained G's colours follow W (the committed run reads 0.970 at n = 32)

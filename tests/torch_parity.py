@@ -115,3 +115,57 @@ def jax_keys(monkeypatch):
 
     monkeypatch.setattr(keys, "randint", randint)
     monkeypatch.setattr(keys, "permutation", lambda key, n: _t(jax.random.permutation(key, n)).long())
+
+
+def generator_pair(path, resolution: int = 16):
+    """One random StyleGAN2 in both packages, written to `path` as an .npz of
+    the JAX weights with every noise weight 0.5 (so the noise takes part in
+    the frames): (JAX mapper + float32 synthesizer, the port's float32
+    ``StyleGAN2`` on the CPU), output at the native size.  16 px has 6 W+
+    rows, which a 3-way latent split divides."""
+    import importlib
+    import types
+
+    from ssar_tpu_torch.gan import stylegan2 as ts
+    from ssar_tpu_torch.gan import wrapper as t_wrapper
+
+    js = importlib.import_module("ssar_tpu.gan.stylegan2")
+    j_wrapper = importlib.import_module("ssar_tpu.gan.wrapper")
+    j_convert = importlib.import_module("ssar_tpu.gan.convert")
+    cfg = dict(resolution=resolution, max_channels=16)
+    params = np_tree(js.init_generator(jax.random.PRNGKey(0), js.StyleGAN2Config(**cfg)))
+    for layer in [params["conv1"], *params["convs"]]:
+        layer["noise_weight"] = np.float32(0.5)
+    j_convert.save_npz(str(path), params)
+    jc, size = js.StyleGAN2Config(**cfg), (resolution, resolution)
+    jG = types.SimpleNamespace(config=jc, mapper=j_wrapper.StyleGAN2Mapper(str(path), config=jc),
+                               synthesizer=j_wrapper.StyleGAN2Synthesizer(str(path), output_size=size, config=jc,
+                                                                          dtype=jnp.float32))
+    tG = t_wrapper.StyleGAN2(str(path), output_size=size, config=ts.StyleGAN2Config(**cfg), dtype=torch.float32,
+                             device="cpu")
+    return jG, tG
+
+
+MIR_DIMS = {"chromagram": 12, "tonnetz": 6, "mfcc": 20, "spectral_contrast": 7, "rms": 1, "drop_strength": 1,
+            "onsets": 1, "spectral_flatness": 1}
+
+
+def inject_mir(monkeypatch, n_frames: int, seed: int = 10) -> list:
+    """``retrieve_music_information`` of both packages replaced by one set of
+    music information of the real shapes (the retrieval's own parity:
+    tests/test_torch_patch.py); returns the port's call log."""
+    import importlib
+
+    from ssar_tpu_torch.generate import mir as t_mir
+
+    rng = np.random.RandomState(seed)
+    feats = {n: rng.rand(n_frames, d).astype(np.float32) for n, d in MIR_DIMS.items()}
+    segs = {(n, k): rng.randint(0, k, n_frames) for n in [*MIR_DIMS, "rosa"] for k in (2, 4, 6, 8, 12, 16)}
+    calls = []
+    monkeypatch.setattr(importlib.import_module("ssar_tpu.generate.mir"), "retrieve_music_information",
+                        lambda audio, sr: ({k: jnp.asarray(v) for k, v in feats.items()},
+                                           {k: jnp.asarray(v) for k, v in segs.items()}, 120.0))
+    monkeypatch.setattr(t_mir, "retrieve_music_information", lambda audio, sr, device=None: calls.append(1) or (
+        {k: torch.as_tensor(v, device=device) for k, v in feats.items()},
+        {k: torch.as_tensor(v, device=device) for k, v in segs.items()}, 120.0))
+    return calls
