@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serve, train, test-time-optimization, random-patch and evaluation paths, the other
-model families and their trainers, checkpoint evaluation and the paper's comparison, once on one CUDA card and
-check them.
+model families and their trainers, checkpoint evaluation, the paper's comparison and the extractors and pSp, once
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -153,7 +153,24 @@ Phases (any failure exits non-zero and prints no result line):
   21. reference check at a small size in fp32 (64 px model, 4 s clip), card
      against CPU with the same weights and draws: evaluate_clip of each
      predictor, feature_sensitivity, ood.compute with the default extractor,
-     one calibration recipe's frames.
+     one calibration recipe's frames;
+  22. the extractors and the small leftovers at full width: the 2-D median
+     helpers on phase 11's |STFT| (1025, 1441), k = 31 (B1 2, bit-equal to
+     the plain version), video_absdiff on phase 13's (1440, 3, 256, 256)
+     frames (B2 1), hpcp / raw_hpcp / tempogram_ratio on phase 11's track,
+     the parity CLI at 8 s (no FAIL, rms and mel within 1e-2 of the numpy
+     oracles; B1 28 and B1 bwd 4), a ResNet-50 through swav_extractor into
+     ood.compute, an IR-SE50 GradualStyleEncoder through invert_frames (192
+     frames at 256 px, traced once), psp_apply through phase 4's 1024 px
+     decoder with and without a latent_mask and autotune over the
+     inversion's batch size, SlowFast R50 over the clip, synchro_saliency;
+     stage seconds (utils.profiling.StageTimer), peak memory, images/s and
+     frames/s, launches exact at each stage; the new call sites' B1 and B2
+     times beside their bounds;
+  23. reference check at a small size in fp32, card against CPU with the same
+     weights: ResNet-50, SlowFast R50 TINY, a small IR-SE encoder through
+     psp_apply and a 64 px decoder, VGGish, SlowFastVideo, hpcp, raw_hpcp and
+     tempogram_ratio (REF_RTOL, REF_FLIP_SHARE).
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
@@ -571,7 +588,7 @@ def main():
 
     # ---------------------------------------------------------- 13, 14 --
     t0 = time.perf_counter()
-    eval_counts = evaluate_path(dev, synthesizer, config, palette, audio, latents, noise)
+    eval_counts, eval_frames = evaluate_path(dev, synthesizer, config, palette, audio, latents, noise)
     t1 = time.perf_counter()
     reference_evaluate(dev)
     log(f"[evaluate] phase 13 took {t1 - t0:.1f} s, phase 14 {time.perf_counter() - t1:.1f} s")
@@ -593,6 +610,14 @@ def main():
     reference_study(dev)
     log(f"[study] phase 19 took {t1 - t0:.1f} s, phase 20 {t2 - t1:.1f} s, phase 21 {time.perf_counter() - t2:.1f} s")
 
+    # ------------------------------------------------------------ 22-23 --
+    t0 = time.perf_counter()
+    extractor_counts, extractor_rows = extractors_path(dev, eval_frames, audio, synthesizer, config)
+    del eval_frames
+    t1 = time.perf_counter()
+    reference_extractors(dev)
+    log(f"[extractors] phase 22 took {t1 - t0:.1f} s, phase 23 {time.perf_counter() - t1:.1f} s")
+
     main_row = [r for r in rows if r["shape"] == [1025, 193]]  # both axes: one HPSS
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
     ad_path = [r for r in absdiff_rows if r["path"]]
@@ -610,7 +635,7 @@ def main():
         **sums(main_row), "library_ms": None, "launches_optimize": opt_counts["sliding_median"],
         "launches_longform": long_counts["sliding_median"], "launches_patch": patch_counts["sliding_median"],
         "launches_evaluate": eval_counts["sliding_median"], "launches_checkpoint": checkpoint_counts["sliding_median"],
-        "launches_study": study_counts["sliding_median"],
+        "launches_study": study_counts["sliding_median"], "launches_extractors": extractor_counts["sliding_median"],
     }, {
         "name": "sliding_median_generic", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": long_counts["sliding_median_generic"],
@@ -628,12 +653,14 @@ def main():
         # one prediction's pair on the optimize path: (2n, n) k = 7 and (n, n) k = 9
         **sums([r for r in bwd_rows if r["path"]]), "library_ms": None,
         "launches_study": study_counts["sliding_median_bwd"],
+        "launches_extractors": extractor_counts["sliding_median_bwd"],
     }, {
         "name": "absdiff", "route": "cuda", "source": "ssar_tpu_torch/csrc/absdiff.cu",
         "replaces": "ssar_tpu/ops/absdiff.py:38", "launches": train_counts["absdiff"],
         "max_abs_err": absdiff_err, **sums(ad_path), "library_ms": None,
         "launches_evaluate": eval_counts["absdiff"], "launches_backbones": backbone_counts["absdiff"],
         "launches_checkpoint": checkpoint_counts["absdiff"], "launches_study": study_counts["absdiff"],
+        "launches_extractors": extractor_counts["absdiff"],
     }, {
         "name": "s4d_vandermonde", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:32", "launches": train_counts["s4d_vandermonde"],
@@ -1052,6 +1079,33 @@ def device_kernels(fn) -> list[str]:
             return names
         time.sleep(0.1)
     fail("torch.profiler lost the device events of one call in five traces in a row")
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 20) -> float:
+    """Device time of one call of `fn` without the profiler and without the
+    host: `calls` calls captured in a CUDA graph (after warm-up calls on the
+    capturing stream, so that nothing is first allocated in the capture),
+    replayed back to back `replays` times between two CUDA events."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(replays):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (replays * calls)
 
 
 def check_absdiff(dev):
@@ -2022,7 +2076,9 @@ def evaluate_path(dev, synthesizer, config, palette, clip_audio: np.ndarray, cli
     evaluate_reactivity, every VIDEO_FEATURES entry and visual_beats, after
     one untimed run at the same shapes; then phase 4's 8 s clip at 1024 px as
     it is; then the reactive and static clips of the reference's test.
-    Returns the B1 and B2 launch counts of the timed 60 s evaluation."""
+    Returns the B1 and B2 launch counts of the timed 60 s evaluation, and
+    the prepared 60 s frames and phase 4's clip prepared at 256 px (on the
+    host) for phase 22."""
     from ssar_tpu_torch.audio.features import audio2features
     from ssar_tpu_torch.generate.audio2video import react
     from ssar_tpu_torch.metrics.rhythmic import rhythmic_reactivity
@@ -2070,10 +2126,12 @@ def evaluate_path(dev, synthesizer, config, palette, clip_audio: np.ndarray, cli
         f"memory {peak:.2f} GiB; sliding_median launches {res['b1']}, absdiff launches {res['b2']} (as derived)")
     log("[evaluate] stages alone: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     counts = {"sliding_median": sum(res["b1"].values()), "absdiff": sum(res["b2"].values())}
+    kept = {"video60": video.cpu()}   # phase 22's input, off the card until then
 
     # phase 4's 8 s clip at 1024 px, not downsampled: the widest frame that users pass
     frames = render_rgb(synthesizer, clip_latents, clip_noise, EVAL_SIDE, 16)
     video = prepare_frames(frames, 1, device=dev)
+    kept["clip256"] = prepare_frames(frames, EVAL_DOWNSAMPLE, device=dev).cpu()
     del frames
     n = video.shape[0]
     evaluation(clip_audio, sr, video, beats=False)
@@ -2103,7 +2161,7 @@ def evaluate_path(dev, synthesizer, config, palette, clip_audio: np.ndarray, cli
     if not r_reactive > r_static:
         fail(f"rhythmic reactivity: flashes on the onsets {r_reactive} <= a static clip {r_static}")
     log(f"[evaluate] constructed clips: flashes on the onsets {r_reactive:.6f} > static {r_static:.6f}")
-    return counts
+    return counts, kept
 
 
 def textured_clip(T: int, side: int, seed: int = SEED) -> np.ndarray:
@@ -3032,6 +3090,326 @@ def reference_study(dev):
     log(f"[reference] comparison card vs CPU (64 px, 4 s, fp32): evaluate_clip latents / worst score error "
         + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}" for k, v in worst.items())
         + f"; feature_sensitivity {sens_err:.3g}; ood.compute {ood_err:.3g}; high_both recipe frames {clip_err:.3g}")
+
+
+# ------------------------------------------------------------------ 22-23 --
+# the parity CLI's B1 launches, derived from the code: of its ten rows only chroma and tonnetz separate harmonic
+# from percussive (one HPSS, two filters, a call), in the warm-up call, in each of its --trials timed calls and in
+# the gradient's forward; the gradient's backward launches B1 bwd twice a row
+PARITY_TRIALS = 5
+PARITY_B1, PARITY_B1_BWD = 2 * 2 * (1 + PARITY_TRIALS + 1), 2 * 2
+SWAV_BATCH, PSP_BATCH, PSP_STYLES = 32, 16, 18
+PSP_BATCHES = (8, 16, 32)
+# phase 23's tolerances, card against CPU in fp32: the networks' outputs within 1e-4 of the largest CPU value;
+# hpcp and raw_hpcp too, but a frame may exceed it where a peak's bin decision (a rounding to the nearest
+# constant-Q bin, a pitch-class window's edge) flips on an ulp of the spectrum: at most 2 % of the frames
+REF_RTOL, REF_FLIP_SHARE = 1e-4, 0.02
+
+
+def _finite(name: str, x: torch.Tensor, shape: tuple):
+    if tuple(x.shape) != tuple(shape) or not bool(torch.isfinite(x).all()):
+        fail(f"{name}: {tuple(x.shape)} (expected {tuple(shape)}), finite={bool(torch.isfinite(x).all())}")
+
+
+def extractors_path(dev, eval_frames: dict, clip_audio: np.ndarray, synthesizer, config) -> tuple[dict, list]:
+    """Phase 22: the twelfth slice's modules at full width on the card, each
+    stage timed with ``utils.profiling.StageTimer`` and its peak memory read:
+    the 2-D median helpers on phase 11's track's |STFT| (1025, 1441), k = 31,
+    bit-equal to the plain version; ``video_absdiff`` on phase 13's prepared
+    frames against ``absdiff_plain``; hpcp, raw_hpcp, tempogram_ratio on
+    phase 11's track; the parity CLI at 8 s; a full-width ResNet-50 through
+    ``swav_extractor`` (224 px, batch 32) into ``ood.compute``; an IR-SE50
+    GradualStyleEncoder (18 x 512, a latent_avg from the decoder's mapping)
+    through ``invert_frames`` (batch 16, traced once), ``psp_apply`` through
+    phase 4's 1024 px decoder with and without a latent_mask, and
+    ``autotune`` over the inversion's batch size; SlowFast R50 at
+    ``SlowFastConfig()`` over phase 4's clip at 256 px; ``synchro_saliency``
+    on phase 4's track and clip.  Random weights drawn on the card from the
+    seed.  B1 / B1 bwd / B2 launches checked exactly at each stage; returns
+    the phase's launch counts and the new call sites' kernel rows."""
+    import contextlib
+    import io
+
+    from ssar_tpu_torch.audio import parity
+    from ssar_tpu_torch.audio.extra import hpcp, raw_hpcp, tempogram_ratio
+    from ssar_tpu_torch.audio.spectral import stft
+    from ssar_tpu_torch.gan.psp import GradualStyleEncoder, IR_STAGES, invert_frames, psp_apply
+    from ssar_tpu_torch.gan.stylegan2 import mapping
+    from ssar_tpu_torch.generate import sample
+    from ssar_tpu_torch.metrics.ood import compute
+    from ssar_tpu_torch.models.extractors import synchro_saliency
+    from ssar_tpu_torch.models.resnet import ResNet50, swav_extractor
+    from ssar_tpu_torch.models.slowfast_r50 import SlowFastConfig, SlowFastR50, SlowFastR50Extractor
+    from ssar_tpu_torch.ops.absdiff import absdiff_plain, video_absdiff
+    from ssar_tpu_torch.ops.median import median_filter2d_freq, median_filter2d_time, median_filter_plain
+    from ssar_tpu_torch.utils.profiling import StageTimer, autotune, trace
+
+    timer, peaks, total = StageTimer(), {}, {}
+
+    @contextlib.contextmanager
+    def measured(name: str, **launches):
+        """Time a stage (the device synchronised around it), read its peak
+        memory, and check its kernel launches exactly."""
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        with timer.stage(name):
+            yield
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        counts = _counts()
+        _expect(f"phase 22 {name}", counts, **launches)
+        _add(total, counts)
+
+    def seconds(name: str) -> float:
+        return timer.records[name][-1]
+
+    # the 2-D median helpers on phase 11's track's |STFT|, and video_absdiff on phase 13's frames
+    audio60, sr = sample.load_audio(str(ROOT / "build" / "chip_smoke_runs" / "patch" / "patch_track.wav"), 0, None, FPS)
+    a60 = torch.as_tensor(audio60, device=dev)
+    S = stft(a60).abs()
+    _finite("|STFT| of phase 11's track", S, (1025, PATCH_FRAMES))
+    median_filter2d_freq(S), median_filter2d_time(S)   # warm-up: the kernel library is loaded
+    with measured("median_filter2d", sliding_median=2):
+        m_freq, m_time = median_filter2d_freq(S), median_filter2d_time(S)
+    if not (torch.equal(m_freq, median_filter_plain(S, 31, 0)) and torch.equal(m_time, median_filter_plain(S, 31, 1))):
+        fail("median_filter2d_freq / _time differ from median_filter_plain on the card")
+    video60 = eval_frames["video60"].to(dev)
+    T60, E60 = video60.shape[0], video60[0].numel()
+    with measured("video_absdiff", absdiff=1):
+        env = video_absdiff(video60)
+    ok, ad_err = within(env[:, 0], absdiff_plain(video60), 1e-5, 0.0)
+    if not ok or tuple(env.shape) != (T60, 1):
+        fail(f"video_absdiff {tuple(env.shape)} differs from absdiff_plain by {ad_err:.3g} (rtol 1e-5)")
+
+    # the new call sites' kernel rows, between the counted stages.  Device times from CUDA-graph replays
+    # (graph_ms): at this point of the script torch.profiler hands back no device events for these calls
+    # (five traces in a row).  |STFT| is a transposed view that the wrapper copies contiguous
+    # before the kernel: the call site's device time is the copy and the kernel, the contiguous input's the
+    # kernel's alone
+    rows = []
+    Sc = S.contiguous()
+    for site, x in (("", S), (", contiguous input", Sc)):
+        for name, fn, axis in (("median_filter2d_freq", median_filter2d_freq, 0),
+                               ("median_filter2d_time", median_filter2d_time, 1)):
+            rows.append({"site": name + site, "shape": list(x.shape), "ms": cuda_ms(lambda: fn(x)),
+                         "dev_ms": graph_ms(lambda: fn(x)),
+                         "plain_ms": cuda_ms(lambda: median_filter_plain(x, 31, axis), runs=5),
+                         "bound_ms": median_bound_ms(x.numel(), 31)[0], "bound_by": "bytes"})
+    ad_bound, ad_by = absdiff_bound_ms(1, T60, E60)
+    rows.append({"site": "video_absdiff", "shape": [T60, E60], "ms": cuda_ms(lambda: video_absdiff(video60)),
+                 "dev_ms": graph_ms(lambda: video_absdiff(video60)),
+                 "plain_ms": cuda_ms(lambda: absdiff_plain(video60), runs=5), "bound_ms": ad_bound, "bound_by": ad_by})
+    for r in rows:
+        log(f"[extractors] {r['site']} {r['shape']}: call {r['ms']:.4f} ms, device (graph replays) "
+            f"{r['dev_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+    # audio extras and the parity CLI
+    with measured("hpcp"):
+        h = hpcp(a60, sr)
+    with measured("raw_hpcp"):
+        rh = raw_hpcp(a60, sr)
+    with measured("tempogram_ratio"):
+        tr = tempogram_ratio(a60, sr, 120.0)
+    _finite("hpcp", h, (a60.shape[0] // 1024, 12))
+    _finite("raw_hpcp", rh, (a60.shape[0] // 512, 12))
+    _finite("tempogram_ratio", tr, (8,))
+    out = io.StringIO()
+    with measured("parity_cli", sliding_median=PARITY_B1, sliding_median_bwd=PARITY_B1_BWD), \
+            contextlib.redirect_stdout(out):
+        parity.main(["--seconds", "8", "--trials", str(PARITY_TRIALS)])
+    table = out.getvalue()
+    for line in table.splitlines():
+        log(f"[extractors] parity | {line}")
+    if "FAIL" in table:
+        fail("the parity CLI could not take a gradient (FAIL) on the card")
+    for row in ("rms", "melspec"):
+        line = next(ln for ln in table.splitlines() if ln.startswith(row))
+        if "shape" in line or not float(line.split("/")[-1]) < 1e-2:
+            fail(f"parity CLI: the {row} row's oracle diff is not below 1e-2: {line}")
+
+    # ResNet-50 through swav_extractor into the OOD metrics
+    real = video60[:256].permute(0, 2, 3, 1)
+    fake = eval_frames["clip256"].to(dev).permute(0, 2, 3, 1)
+    torch.manual_seed(SEED)
+    with torch.device(dev):
+        resnet = ResNet50().eval()
+    extract = swav_extractor(resnet, batch_size=SWAV_BATCH)
+    extract(real[:SWAV_BATCH])
+    with measured("swav_features"):
+        f_real, f_fake = extract(real), extract(fake)
+    _finite("swav features (real)", f_real, (real.shape[0], 2048))
+    _finite("swav features (fake)", f_fake, (fake.shape[0], 2048))
+    with measured("ood_compute"):
+        ood = compute(real, fake, extractor=extract, device=dev)
+    if not all(math.isfinite(v) for v in ood.values()):
+        fail(f"ood.compute through swav_extractor: {ood}")
+    n_img = real.shape[0] + fake.shape[0]
+
+    # pSp: the IR-SE50 GradualStyleEncoder, inversion, psp_apply through the 1024 px decoder, autotune
+    torch.manual_seed(SEED)
+    with torch.device(dev):
+        encoder = GradualStyleEncoder(IR_STAGES[50], PSP_STYLES, 512, 256).eval()
+        z = torch.randn(4096, 512, generator=torch.Generator(dev).manual_seed(SEED), device=dev)
+        latent_avg = mapping(synthesizer.params, z, config).mean(0).expand(PSP_STYLES, -1).contiguous()
+    psp = {"encoder": encoder, "decoder": synthesizer.params, "latent_avg": latent_avg}
+    clip = eval_frames["clip256"].to(dev).permute(0, 2, 3, 1) * 2 - 1   # (192, 256, 256, 3) in [-1, 1]
+    invert_frames(psp, clip[:PSP_BATCH], batch_size=PSP_BATCH, device=dev)
+    with measured("invert_frames"):
+        w = invert_frames(psp, clip, batch_size=PSP_BATCH, device=dev)
+    _finite("invert_frames", w, (clip.shape[0], PSP_STYLES, 512))
+    trace_dir = ROOT / "build" / "chip_smoke_runs" / "psp_trace"
+    with trace(str(trace_dir)):
+        invert_frames(psp, clip, batch_size=PSP_BATCH, device=dev)
+        torch.cuda.synchronize()
+    traces = sorted(trace_dir.glob("trace-*.json"))
+    if not traces or traces[-1].stat().st_size == 0:
+        fail(f"utils.profiling.trace wrote no trace under {trace_dir}")
+    with torch.no_grad():
+        psp_apply(psp, clip[:PSP_BATCH], config)
+        with measured("psp_apply"):
+            frames, codes = psp_apply(psp, clip[:PSP_BATCH], config)
+            frames_m, codes_m = psp_apply(psp, clip[:PSP_BATCH], config, latent_mask=[0, 1, 2, 3],
+                                          inject_latent=w[PSP_BATCH : 2 * PSP_BATCH], alpha=0.5)
+    side = min(config.resolution, 256)   # psp_apply pools frames larger than 256 px to 256
+    for name, f, c in (("psp_apply", frames, codes), ("psp_apply with a latent_mask", frames_m, codes_m)):
+        _finite(f"{name} frames", f, (PSP_BATCH, side, side, 3))
+        _finite(f"{name} codes", c, (PSP_BATCH, PSP_STYLES, 512))
+    mixed = 0.5 * w[PSP_BATCH : 2 * PSP_BATCH, :4] + 0.5 * codes[:, :4]
+    if not (torch.equal(codes_m[:, 4:], codes[:, 4:]) and within(codes_m[:, :4], mixed, 1e-6, 1e-6)[0]):
+        fail("psp_apply's style mixing: rows outside the mask changed or the masked rows are not the mix")
+    with measured("autotune"):
+        best, results = autotune(lambda batch_size: (lambda x: invert_frames(psp, x, batch_size=batch_size, device=dev)),
+                                 [{"batch_size": b} for b in PSP_BATCHES], (clip,), iters=3, warmup=1, device=dev)
+    if any("error" in r for r in results):
+        fail(f"autotune over invert_frames' batch size: a configuration erred: {results}")
+
+    # SlowFast R50 at the 8x8 R50 config over the clip, and synchro-saliency
+    torch.manual_seed(SEED)
+    with torch.device(dev):
+        slowfast = SlowFastR50(SlowFastConfig()).eval()
+    sf_ext = SlowFastR50Extractor(slowfast, device=dev)
+    clip01 = eval_frames["clip256"].to(dev)
+    sf_ext(clip01[:32])
+    with measured("slowfast_r50"):
+        sf_feats = sf_ext(clip01)
+    for f, d in zip(sf_feats, [88, 352, 704, 1408, 2304]):
+        _finite("SlowFastR50Extractor", f, (clip01.shape[0], d))
+    if len(sf_feats) != 5:
+        fail(f"SlowFastR50Extractor returned {len(sf_feats)} levels")
+    with measured("synchro_saliency"):
+        sal = synchro_saliency(clip_audio, 44100, clip01, FPS, seed=SEED, device=dev)
+    n_audio = ((-(-len(clip_audio) * 160 // 441) - 400) // 160 + 1) // 96   # VGGish's 0.96 s examples at 16 kHz
+    _finite("synchro_saliency", sal, (min(n_audio, clip01.shape[0] // 16),))
+    if float(sal.abs().max()) > 1 + 1e-5:
+        fail(f"synchro_saliency is a cosine but reached {float(sal.abs().max())}")
+
+    log("[extractors] stages (s, peak GiB): " + ", ".join(f"{k} {seconds(k):.3f} / {peaks[k]:.2f}" for k in peaks))
+    log(f"[extractors] swav_extractor: ResNet-50 at 224 px, batch {SWAV_BATCH}, {n_img} images ({real.shape[0]} of "
+        f"phase 13's frames, phase 4's {fake.shape[0]} at 256 px) in {seconds('swav_features'):.3f} s = "
+        f"{n_img / seconds('swav_features'):.1f} images/s; ood.compute {seconds('ood_compute'):.3f} s: "
+        + ", ".join(f"{k} {v:.6g}" for k, v in ood.items()))
+    log(f"[extractors] invert_frames: IR-SE50 GradualStyleEncoder ({PSP_STYLES} x 512) on {clip.shape[0]} frames at "
+        f"256 px, batch {PSP_BATCH}: {seconds('invert_frames'):.3f} s = {clip.shape[0] / seconds('invert_frames'):.1f} "
+        f"frames/s; psp_apply x 2 (1024 px decoder, fp32, {PSP_BATCH} frames) {seconds('psp_apply'):.3f} s; trace "
+        f"{traces[-1].relative_to(ROOT)} ({traces[-1].stat().st_size / 1e6:.1f} MB); autotune "
+        + ", ".join(f"batch {r['batch_size']} {r['time'] * 1e3:.1f} ms" for r in results) + f" -> {best}")
+    log(f"[extractors] SlowFast R50 (SlowFastConfig(), clip_len 32) on {clip01.shape[0]} frames at 256 px: "
+        f"{seconds('slowfast_r50'):.3f} s = {clip01.shape[0] / seconds('slowfast_r50'):.1f} frames/s, levels "
+        f"{[tuple(f.shape) for f in sf_feats]}; synchro_saliency {seconds('synchro_saliency'):.3f} s, "
+        f"{sal.shape[0]} windows, mean {float(sal.mean()):.4f}; hpcp {seconds('hpcp'):.3f} s, raw_hpcp "
+        f"{seconds('raw_hpcp'):.3f} s, tempogram_ratio {seconds('tempogram_ratio'):.3f} s on 60 s; parity CLI "
+        f"{seconds('parity_cli'):.3f} s; launches {total} (as derived)")
+
+    return total, rows
+
+
+def reference_extractors(dev):
+    """Phase 23: the new modules card against CPU at small sizes in fp32, with
+    the same weights (drawn on the CPU): ResNet-50 at full width on 64 px
+    images, SlowFast R50 at the tests' TINY config, an IR-SE GradualStyleEncoder
+    of four one-unit stages through psp_apply and a 64 px decoder (with a
+    latent_mask), VGGish on 2 s at 16 kHz, SlowFastVideo on 32 frames at 32
+    px; hpcp, raw_hpcp and tempogram_ratio on a 4 s track.  Tolerances:
+    ``REF_RTOL``, ``REF_FLIP_SHARE``."""
+    from ssar_tpu_torch.audio.extra import hpcp, raw_hpcp, tempogram_ratio
+    from ssar_tpu_torch.gan.psp import init_random_params as psp_init
+    from ssar_tpu_torch.gan.psp import psp_apply
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config, init_generator
+    from ssar_tpu_torch.models import resnet, slowfast_r50
+    from ssar_tpu_torch.models.extractors import (SlowFastExtractor, VggishExtractor, random_slowfast_video,
+                                                  random_vggish)
+    from ssar_tpu_torch.utils.device import full_precision
+
+    rng = np.random.RandomState(SEED)
+    errs, flips = {}, {}
+
+    def held(name: str, card: torch.Tensor, cpu: torch.Tensor, flip_rows: bool = False):
+        card = card.detach().cpu()
+        if card.shape != cpu.shape:
+            fail(f"phase 23 {name}: card {tuple(card.shape)} vs CPU {tuple(cpu.shape)}")
+        scale = float(cpu.abs().max())
+        err = (card - cpu).abs()
+        errs[name] = float(err.max()) / scale
+        if flip_rows:   # rows beyond the tolerance: a flipped bin decision
+            n_flip = int((err.reshape(err.shape[0], -1).amax(1) > REF_RTOL * scale).sum())
+            flips[name] = n_flip
+            if n_flip > REF_FLIP_SHARE * err.shape[0]:
+                fail(f"phase 23 {name}: {n_flip} of {err.shape[0]} frames beyond {REF_RTOL} of the largest value")
+        elif not errs[name] <= REF_RTOL:
+            fail(f"phase 23 {name}: card vs CPU {errs[name]:.3g} of the largest value > {REF_RTOL}")
+
+    def both(module_cpu):
+        return module_cpu, copy.deepcopy(module_cpu).to(dev)
+
+    # ResNet-50 (the JAX package's random weights) on 64 px images
+    r_cpu, r_card = both(resnet.init_random_params())
+    x = torch.as_tensor(rng.rand(2, 64, 64, 3).astype(np.float32))
+    held("resnet50", resnet.resnet50_features(r_card, x.to(dev)), resnet.resnet50_features(r_cpu, x))
+
+    # SlowFast R50 at the tests' TINY config
+    tiny = slowfast_r50.SlowFastConfig(alpha=4, beta_inv=4, width=8, depths=(1, 1, 1, 1), fusion_kernel=3,
+                                       temp_kernels_slow=(1, 1, 3, 3), temp_kernels_fast=(3, 3, 3, 3))
+    s_cpu, s_card = both(slowfast_r50.init_random_params(SEED, tiny))
+    fast = torch.as_tensor(rng.rand(2, 3, 8, 32, 32).astype(np.float32) * 2 - 1)
+    f_cpu = slowfast_r50.slowfast_features(s_cpu, fast[:, :, ::4], fast)
+    f_card = slowfast_r50.slowfast_features(s_card, fast[:, :, ::4].to(dev), fast.to(dev))
+    for i, (a, b) in enumerate(zip(f_card, f_cpu)):
+        held(f"slowfast_r50 level {i}", a, b)
+
+    # pSp: a four-stage IR-SE encoder through psp_apply and a 64 px decoder
+    cfg = StyleGAN2Config(resolution=64, max_channels=64)
+    stages = ((8, 8, 1), (8, 12, 1), (12, 16, 1), (16, 24, 1))
+    enc_cpu, enc_card = both(psp_init(SEED, stages, cfg.n_latent, input_res=32))
+    dec = init_generator(cfg, generator=torch.Generator().manual_seed(SEED))
+    avg = torch.as_tensor(0.1 * rng.randn(cfg.n_latent, 512).astype(np.float32))
+    p_cpu = {"encoder": enc_cpu, "decoder": dec, "latent_avg": avg}
+    p_card = {"encoder": enc_card, "decoder": _to(dec, dev), "latent_avg": avg.to(dev)}
+    imgs = torch.as_tensor(rng.rand(2, 32, 32, 3).astype(np.float32) * 2 - 1)
+    inj = torch.as_tensor(rng.randn(2, cfg.n_latent, 512).astype(np.float32))
+    for kw_name, kw in (("psp_apply", {}), ("psp_apply mixed", {"latent_mask": [0, 3], "alpha": 0.3})):
+        with torch.no_grad(), full_precision():
+            fc, cc = psp_apply(p_card, imgs.to(dev), cfg, inject_latent=inj.to(dev) if kw else None, **kw)
+            fp, cp = psp_apply(p_cpu, imgs, cfg, inject_latent=inj if kw else None, **kw)
+        held(f"{kw_name} codes", cc, cp)
+        held(f"{kw_name} frames", fc, fp)
+
+    # VGGish and SlowFastVideo through their extractors
+    audio = rng.randn(32000).astype(np.float32) * 0.3
+    vgg = random_vggish(SEED)
+    held("VggishExtractor", VggishExtractor(copy.deepcopy(vgg), device=dev)(audio, 16000),
+         VggishExtractor(vgg, device="cpu")(audio, 16000))
+    sfv = random_slowfast_video(SEED)
+    video = rng.rand(32, 3, 32, 32).astype(np.float32)
+    held("SlowFastExtractor", SlowFastExtractor(copy.deepcopy(sfv), device=dev)(video),
+         SlowFastExtractor(sfv, device="cpu")(video))
+
+    # the audio extras on a 4 s track
+    track = torch.as_tensor(synthetic_track(1024 * FPS, 4.0))
+    sr = 1024 * FPS
+    held("hpcp", hpcp(track.to(dev), sr), hpcp(track, sr), flip_rows=True)
+    held("raw_hpcp", raw_hpcp(track.to(dev), sr), raw_hpcp(track, sr), flip_rows=True)
+    held("tempogram_ratio", tempogram_ratio(track.to(dev), sr, 120.0), tempogram_ratio(track, sr, 120.0))
+    log("[reference] extractors card vs CPU (fp32), max error / largest value: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f"; frames beyond {REF_RTOL} (flipped bins) {flips}")
 
 
 def _to(tree, device):

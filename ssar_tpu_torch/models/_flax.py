@@ -54,13 +54,20 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
-def same_pad(x: torch.Tensor, kernel: int, stride: int = 1, dilation: int = 1) -> torch.Tensor:
-    """x (B, C, T) padded along T as XLA pads ``padding="SAME"``: the output
-    has ceil(T / stride) frames, the extra padding at the end."""
-    T = x.shape[-1]
-    out = -(-T // stride)
-    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - T, 0)
-    return F.pad(x, (total // 2, total - total // 2))
+def same_pad(x: torch.Tensor, kernel, stride=1, dilation=1) -> torch.Tensor:
+    """x (B, C, spatial...) padded along its last len(kernel) axes (the last
+    one for an int kernel) as XLA pads ``padding="SAME"``: each axis of
+    length n keeps ceil(n / stride) outputs, the odd pixel of padding at the
+    end.  `stride` and `dilation` are ints or one per axis."""
+    kernel = (kernel,) if isinstance(kernel, int) else tuple(kernel)
+    nd = len(kernel)
+    stride = (stride,) * nd if isinstance(stride, int) else tuple(stride)
+    dilation = (dilation,) * nd if isinstance(dilation, int) else tuple(dilation)
+    pads = []
+    for n, k, s, d in zip(x.shape[-nd:], kernel, stride, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return F.pad(x, [p for pair in reversed(pads) for p in pair])
 
 
 class Conv(nn.Module):
@@ -82,13 +89,11 @@ class Conv(nn.Module):
         """Channels-first x (B, C, spatial...)."""
         nd = len(self.kernel_size)
         if self.padding == "SAME":
-            if nd == 1:
-                x = same_pad(x, self.kernel_size[0], self.stride, self.dilation)
-                pad = 0
-            elif self.stride == 1 and self.dilation == 1 and all(k % 2 for k in self.kernel_size):
+            if nd > 1 and self.stride == 1 and self.dilation == 1 and all(k % 2 for k in self.kernel_size):
                 pad = tuple(k // 2 for k in self.kernel_size)
             else:
-                raise ValueError("SAME padding for strided or even kernels is 1-D only")
+                x = same_pad(x, self.kernel_size, self.stride, self.dilation)
+                pad = 0
         else:
             pad = 0
         conv = (F.conv1d, F.conv2d, F.conv3d)[nd - 1]

@@ -70,3 +70,10 @@ def batch_absdiff(x: torch.Tensor) -> torch.Tensor:
 def absdiff(x: torch.Tensor) -> torch.Tensor:
     """Differentiable (T, ...) -> (T,), in the input's floating dtype."""
     return batch_absdiff(x[None])[0]
+
+
+def video_absdiff(video: torch.Tensor) -> torch.Tensor:
+    """(T, ...) -> (T, 1) envelope of a video's frames, through :func:`absdiff`
+    (the kernel on a CUDA tensor; the JAX package computes it with
+    ``absdiff_ref``, the same function)."""
+    return absdiff(video)[:, None]

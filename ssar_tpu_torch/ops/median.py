@@ -157,3 +157,13 @@ def median_filter(x: torch.Tensor, k: int, axis: int = -1, mode: str = "reflect"
     if axis >= x.ndim - 2:
         return _SlidingMedian.apply(x, k, axis)
     return _SlidingMedian.apply(x.movedim(axis, -1), k, x.ndim - 1).movedim(-1, axis)
+
+
+def median_filter2d_freq(S: torch.Tensor, ks: int = 31) -> torch.Tensor:
+    """Median over the frequency axis (axis 0 of a (F, T) spectrogram)."""
+    return median_filter(S, ks, axis=0, mode="reflect")
+
+
+def median_filter2d_time(S: torch.Tensor, ks: int = 31) -> torch.Tensor:
+    """Median over the time axis (axis 1 of a (F, T) spectrogram)."""
+    return median_filter(S, ks, axis=1, mode="reflect")

@@ -19,7 +19,9 @@ generic kernels for odd k > 31 are held the same way.  absdiff at rtol
 within one unit in the last place of the float32 result cast, and bit for
 bit between two launches; the S4D Vandermonde kernel and its backward at rtol
 1e-4 with an atol of 1e-5 of the largest magnitude (exp / sin / cos of the
-same fp32 products, summed in another order).
+same fp32 products, summed in another order).  The 2-D median helpers and
+``video_absdiff`` launch B1 and B2 once a call; the extractors and pSp are
+held card against CPU at 1e-4 of the largest magnitude.
 """
 import pytest
 import torch
@@ -520,3 +522,72 @@ def test_raw_cache_batches_and_checkpoint_on_the_card(cuda_device, tmp_path):
     a, _ = model(x, generator=torch.Generator(cuda_device).manual_seed(1))
     b, _ = model(x, generator=torch.Generator(cuda_device).manual_seed(1))
     assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
+@pytest.mark.cuda
+def test_median_filter2d_and_video_absdiff_launch_the_kernels(cuda_device):
+    """The 2-D median helpers launch B1 once each and ``video_absdiff`` B2 once,
+    equal to their plain versions; the wrappers never take the plain route on
+    a CUDA tensor (a kernel that fails to launch raises)."""
+    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda
+    from ssar_tpu_torch.ops.absdiff import absdiff_plain, video_absdiff
+    from ssar_tpu_torch.ops.median import median_filter2d_freq, median_filter2d_time
+
+    g = torch.Generator().manual_seed(0)
+    S = torch.rand(1025, 301, generator=g).to(cuda_device)
+    before = median_cuda.launches
+    assert torch.equal(median_filter2d_freq(S), median_filter_plain(S, 31, 0))
+    assert torch.equal(median_filter2d_time(S, 7), median_filter_plain(S, 7, 1))
+    assert median_cuda.launches == before + 2
+    video = torch.rand(48, 3, 64, 64, generator=g).to(cuda_device)
+    before = absdiff_cuda.launches
+    got = video_absdiff(video)
+    assert got.shape == (48, 1) and absdiff_cuda.launches == before + 1
+    want = absdiff_plain(video)
+    assert bool(((got[:, 0] - want).abs() <= 1e-5 * want.abs()).all())
+
+
+@pytest.mark.cuda
+def test_extractors_and_psp_on_the_card_match_the_cpu(cuda_device):
+    """ResNet-50 (narrow), SlowFast R50 at a tiny config, a small IR-SE pSp
+    encoder, VGGish and SlowFastVideo: card against CPU with the same weights,
+    in full float32, within 1e-4 of the largest magnitude."""
+    import copy
+
+    from ssar_tpu_torch.gan import psp
+    from ssar_tpu_torch.models import extractors, resnet, slowfast_r50
+
+    g = torch.Generator().manual_seed(0)
+
+    def held(card, cpu):
+        card, cpu = card.detach().cpu(), cpu.detach()
+        assert card.shape == cpu.shape
+        assert float((card - cpu).abs().max()) <= 1e-4 * float(cpu.abs().max())
+
+    r = resnet.init_random_params(widths=(8, 16, 16, 32))
+    x = torch.rand(2, 48, 48, 3, generator=g)
+    held(resnet.resnet50_features(copy.deepcopy(r).to(cuda_device), x.to(cuda_device)), resnet.resnet50_features(r, x))
+
+    tiny = slowfast_r50.SlowFastConfig(beta_inv=4, width=8, depths=(1, 1, 1, 1), fusion_kernel=3)
+    sf = slowfast_r50.init_random_params(0, tiny)
+    fast = torch.rand(2, 3, 8, 32, 32, generator=g)
+    for a, b in zip(slowfast_r50.slowfast_features(copy.deepcopy(sf).to(cuda_device), fast[:, :, ::4].to(cuda_device),
+                                                   fast.to(cuda_device)),
+                    slowfast_r50.slowfast_features(sf, fast[:, :, ::4], fast)):
+        held(a, b)
+
+    enc = psp.init_random_params(0, ((8, 8, 1), (8, 12, 1), (12, 16, 1), (16, 24, 1)), 8, 32, 16)
+    imgs = torch.rand(2, 32, 32, 3, generator=g) * 2 - 1
+    held(psp.gradual_style_encoder(copy.deepcopy(enc).to(cuda_device), imgs.to(cuda_device)),
+         psp.gradual_style_encoder(enc, imgs))
+    w_card = psp.invert_frames({"encoder": copy.deepcopy(enc)}, imgs, batch_size=1, device=cuda_device)
+    held(w_card, psp.invert_frames({"encoder": enc}, imgs, batch_size=2, device="cpu"))
+
+    audio = torch.randn(32000, generator=g).numpy() * 0.3
+    vgg = extractors.random_vggish(0)
+    held(extractors.VggishExtractor(copy.deepcopy(vgg), device=cuda_device)(audio, 16000),
+         extractors.VggishExtractor(vgg, device="cpu")(audio, 16000))
+    sfv = extractors.random_slowfast_video(0)
+    video = torch.rand(32, 3, 32, 32, generator=g)
+    held(extractors.SlowFastExtractor(copy.deepcopy(sfv), device=cuda_device)(video),
+         extractors.SlowFastExtractor(sfv, device="cpu")(video))

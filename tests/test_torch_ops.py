@@ -21,14 +21,15 @@ j_iir = importlib.import_module("ssar_tpu.ops.iir")
 j_q = importlib.import_module("ssar_tpu.ops.quantile")
 j_rs = importlib.import_module("ssar_tpu.ops.resample")
 j_up = importlib.import_module("ssar_tpu.ops.upfirdn")
+# the port's ops package re-exports dct, quantile, resample and absdiff under their submodules' names
+t_dct = importlib.import_module("ssar_tpu_torch.ops.dct")
+t_q = importlib.import_module("ssar_tpu_torch.ops.quantile")
+t_rs = importlib.import_module("ssar_tpu_torch.ops.resample")
 from ssar_tpu.ops.median import median_filter as j_median
 from ssar_tpu.ops.median_pallas import sliding_median_lastaxis
 from ssar_tpu_torch.audio.spectral import reflect_pad
-from ssar_tpu_torch.ops import dct as t_dct
 from ssar_tpu_torch.ops import gaussian as t_gauss
 from ssar_tpu_torch.ops import iir as t_iir
-from ssar_tpu_torch.ops import quantile as t_q
-from ssar_tpu_torch.ops import resample as t_rs
 from ssar_tpu_torch.ops import upfirdn as t_up
 from ssar_tpu_torch.ops.median import median_filter, median_filter_plain, sliding_median_bwd_plain
 
@@ -411,7 +412,7 @@ def test_fused_leaky_relu_and_upsample(rng):
 # float32 sums of |differences| taken in another order: rtol 1e-5, atol 1e-4
 # (as tests/test_ops.py holds the Pallas kernel against absdiff_ref)
 j_absdiff = importlib.import_module("ssar_tpu.ops.absdiff")
-from ssar_tpu_torch.ops import absdiff as t_absdiff  # noqa: E402
+t_absdiff = importlib.import_module("ssar_tpu_torch.ops.absdiff")
 
 
 @pytest.mark.parametrize("shape", [(33, 3, 8, 8), (17, 5), (2, 7), (96, 16)])

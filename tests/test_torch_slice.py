@@ -136,7 +136,10 @@ def test_port_imports_nothing_of_jax():
             "ssar_tpu_torch/train/evaluate.py", "ssar_tpu_torch/utils/native.py", "ssar_tpu_torch/utils/plot.py",
             "ssar_tpu_torch/metrics/analysis.py", "ssar_tpu_torch/metrics/preliminary.py",
             "ssar_tpu_torch/metrics/generate.py", "ssar_tpu_torch/metrics/comparison.py",
-            "ssar_tpu_torch/metrics/study.py"} <= names
+            "ssar_tpu_torch/metrics/study.py", "ssar_tpu_torch/audio/extra.py", "ssar_tpu_torch/audio/parity.py",
+            "ssar_tpu_torch/utils/profiling.py", "ssar_tpu_torch/models/resnet.py",
+            "ssar_tpu_torch/models/slowfast_r50.py", "ssar_tpu_torch/models/extractors.py",
+            "ssar_tpu_torch/models/convert_extractors.py", "ssar_tpu_torch/gan/psp.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
