@@ -101,11 +101,16 @@ class StyleGAN2Synthesizer:
         reference's list of {"layer": int, "transform": callable[,
         "modulation": (T, ...) array]}.  Transforms take the level's NCHW
         activations (see ``stylegan2.synthesis``); one with a "modulation" is
-        called as ``transform(x, modulation[frame_idx])`` for each batch."""
+        called as ``transform(x, modulation[frame_idx])`` for each batch.  A
+        modulation may be a numpy array or a tensor on any device, one that
+        requires grad included (it is detached)."""
         mods = {}
         if isinstance(bends, (list, tuple)):
-            mods = {int(b["layer"]): torch.as_tensor(np.asarray(b["modulation"], np.float32), device=self.device)
-                    for b in bends if b.get("modulation") is not None}
+            for b in bends:
+                m = b.get("modulation")
+                if m is not None:
+                    m = m.detach() if isinstance(m, torch.Tensor) else m
+                    mods[int(b["layer"])] = torch.as_tensor(m, dtype=torch.float32, device=self.device)
             bends = {int(b["layer"]): b["transform"] for b in bends}
         self.bends = dict(bends or {})
         self.bend_mods = mods

@@ -21,53 +21,19 @@ import numpy as np
 import pytest
 import torch
 
-from ssar_tpu_torch.gan import stylegan2 as ts
-from ssar_tpu_torch.gan import wrapper as t_wrap
 from ssar_tpu_torch.generate import audioreactive as t_ar
 from ssar_tpu_torch.generate import keys
+from torch_examples import AUDIO, FPS, SR, T, jax_draws, run_example, synths  # noqa: F401  (fixtures)
+from torch_examples import close as _close
 
 j_ar = importlib.import_module("ssar_tpu.generate.audioreactive")
-js = importlib.import_module("ssar_tpu.gan.stylegan2")
-j_wrap = importlib.import_module("ssar_tpu.gan.wrapper")
 
-ROOT = Path(__file__).resolve().parents[1]
-FPS = 12
-SR = 1024 * FPS
 EXAMPLES = ["base_patch", "tempo_loop_noise_patch", "widescreen_bend_patch", "perlin_tonal_noise_patch",
             "segmentation_noise_sections_patch", "tracklist_truncation_patch"]
 
 
-def _track():
-    """4 s at 12 fps (T = 48), the track of tests/test_torch_optimize.py on
-    which both packages' tuning estimates and CQT labels agree."""
-    t = np.arange(SR * 4) / SR
-    rng = np.random.RandomState(0)
-    audio = (0.4 * np.sin(2 * np.pi * np.cumsum(np.where(t < 2.0, 220.0, 330.0)) / SR)
-             + np.where(t < 2.0, 0.02, 0.15) * rng.randn(len(t))).astype(np.float32)
-    audio[:: SR // 2] += 1.0
-    return audio
-
-
-AUDIO = _track()
-T = len(AUDIO) // 1024
-
-
-def _close(got, want, atol=1e-5, rtol=1e-5):
-    got = got.detach().cpu().float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
-    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=rtol, atol=atol)
-
-
 def _t(x):
     return torch.as_tensor(np.array(x))
-
-
-@pytest.fixture
-def jax_draws(monkeypatch):
-    """``keys`` replaced by wrappers over ``jax.random``: JAX's draws exactly."""
-    monkeypatch.setattr(keys, "PRNGKey", jax.random.PRNGKey)
-    monkeypatch.setattr(keys, "split", lambda key, num=2: tuple(jax.random.split(key, num)))
-    monkeypatch.setattr(keys, "normal", lambda key, shape=(), device=None:
-                        torch.as_tensor(np.array(jax.random.normal(key, tuple(shape))), device=device))
 
 
 # ---------------------------------------------------------- signal ops --
@@ -205,58 +171,12 @@ def test_random_patch_matches_jax(rng, jax_draws, seed):
 
 
 # ------------------------------------------------ render_patch, examples --
-CFG = dict(resolution=32, max_channels=16)
-
-
-@pytest.fixture(scope="module")
-def synths():
-    """A JAX synthesizer at 32 px in float32 and the port's on its weights."""
-    jsyn = j_wrap.StyleGAN2Synthesizer(config=js.StyleGAN2Config(**CFG), dtype=jnp.float32, seed=1)
-    params = jax.tree_util.tree_map(np.asarray, jsyn.params)
-    tsyn = t_wrap.StyleGAN2Synthesizer(config=ts.StyleGAN2Config(**CFG), dtype=torch.float32, device="cpu",
-                                       params=ts.params_from_jax(params))
-    return jsyn, tsyn
-
-
-def _noise_at(n, T_):
-    """A noise slot as a (T, H, W) array: lazy modules evaluated over the
-    whole track."""
-    if n is None:
-        return None
-    if callable(n) and not isinstance(n, (np.ndarray, jax.Array, torch.Tensor)):
-        n = n(0, T_)
-    n = np.asarray(n.detach().numpy() if isinstance(n, torch.Tensor) else n)
-    return n[:, 0] if n.ndim == 4 else n
-
-
 @pytest.mark.parametrize("name", EXAMPLES)
-def test_example_patches_match_jax(jax_draws, synths, rng, name):
-    """Each ported example against its JAX original: latents, every noise
-    slot (None where JAX's is None) and, where it bends, frames."""
-    jsyn, tsyn = synths
-    j_mod = j_ar.load_patch_module(str(ROOT / "examples" / f"{name}.py"))
-    t_mod = t_ar.load_patch_module(str(ROOT / "ssar_tpu_torch" / "examples" / f"{name}.py"))
-    pal = rng.randn(12, jsyn.config.n_latent, 512).astype(np.float32)
-    lat_j, noise_j = j_ar.render_patch(j_mod, jnp.asarray(AUDIO), SR, fps=FPS, palette=jnp.asarray(pal),
-                                       synthesizer=jsyn)
-    lat_t, noise_t = t_ar.render_patch(t_mod, AUDIO, SR, fps=FPS, palette=pal, synthesizer=tsyn)
-    assert tuple(lat_t.shape) == lat_j.shape == (T, jsyn.config.n_latent, 512)
-    _close(lat_t, lat_j, 1e-3, 1e-3)
-    if noise_j is None:
-        assert noise_t is None
-    else:
-        assert len(noise_t) == len(noise_j) == tsyn.n_noises_used
-        for a, b in zip(noise_t, noise_j):
-            a, b = _noise_at(a, T), _noise_at(b, T)
-            assert (a is None) == (b is None)
-            if b is not None:
-                _close(a, b, 1e-3, 1e-3)
-    if tsyn.bends:
-        want = jsyn(lat_j[:2])
-        got = tsyn(lat_t[:2])
-        assert tuple(got.shape) == want.shape == (2, 32, 64, 3)
-        _close(got, want, 1e-3, 1e-3)
-    tsyn.set_bends({})
+def test_example_patches_match_jax(jax_draws, synths, rng, monkeypatch, name):
+    """Each ported example against its JAX original (tests/torch_examples.py:
+    latents, every noise slot and its std, frames where it bends, B1's
+    count)."""
+    run_example(name, synths, rng, monkeypatch)
 
 
 def test_render_patch_renders_lazy_noise_and_truncation(jax_draws, synths, rng):

@@ -21,7 +21,11 @@ bit between two launches; the S4D Vandermonde kernel and its backward at rtol
 1e-4 with an atol of 1e-5 of the largest magnitude (exp / sin / cos of the
 same fp32 products, summed in another order).  The 2-D median helpers and
 ``video_absdiff`` launch B1 and B2 once a call; the extractors and pSp are
-held card against CPU at 1e-4 of the largest magnitude.
+held card against CPU at 1e-4 of the largest magnitude.  Example patches
+(``scrolling_drop_patch``, ``stem_separated_patch`` with stems) go through
+``render_patch`` on the card and on the CPU at 32 px with the noise banks
+drawn on the CPU, within 1e-3, B1's launches exact; ``set_bends`` takes a
+CUDA modulation (fault C5).
 """
 import pytest
 import torch
@@ -591,3 +595,70 @@ def test_extractors_and_psp_on_the_card_match_the_cpu(cuda_device):
     video = torch.rand(32, 3, 32, 32, generator=g)
     held(extractors.SlowFastExtractor(copy.deepcopy(sfv), device=cuda_device)(video),
          extractors.SlowFastExtractor(sfv, device="cpu")(video))
+
+
+# ----------------------------------------------------------- example patches --
+def _example_synths(device, resolution: int = 32):
+    """A small float32 StyleGAN2 (noise weights 0.5) on the CPU and its copy on
+    the card, and a 12-latent palette from its mapping network."""
+    import chip_smoke
+    from ssar_tpu_torch.gan import stylegan2 as sg
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Synthesizer
+
+    cfg = sg.StyleGAN2Config(resolution=resolution, max_channels=16)
+    params = sg.init_generator(cfg, torch.Generator().manual_seed(0))
+    for layer in [params["conv1"], *params["convs"]]:
+        layer["noise_weight"] = torch.tensor(0.5)
+    syn_cpu = StyleGAN2Synthesizer(config=cfg, dtype=torch.float32, device="cpu", params=params)
+    syn_card = StyleGAN2Synthesizer(config=cfg, dtype=torch.float32, device=device,
+                                    params=chip_smoke._to(params, device))
+    with torch.no_grad():
+        palette = sg.w_to_wplus(sg.mapping(params, torch.randn(12, 512, generator=torch.Generator().manual_seed(1)),
+                                           cfg), cfg)
+    return syn_cpu, syn_card, palette
+
+
+@pytest.mark.cuda
+def test_set_bends_takes_a_cuda_modulation(cuda_device):
+    """C5: an animated bend's modulation given as a CUDA tensor, also one that
+    requires grad, renders what the numpy modulation renders."""
+    import numpy as np
+
+    from ssar_tpu_torch import examples
+    from ssar_tpu_torch.generate import audioreactive as ar
+
+    _, syn, _ = _example_synths(cuda_device)
+    scroll = ar.load_patch_module(examples.path("scrolling_drop_patch")).scroll
+    frac = np.linspace(0, 0.9, 48).astype(np.float32)
+    lat = torch.randn(2, syn.config.n_latent, 512, generator=torch.Generator().manual_seed(2))
+    fi = torch.tensor([10, 40])
+    syn.set_bends([{"layer": 2, "transform": scroll, "modulation": frac}])
+    want = syn(lat, frame_idx=fi)
+    on_card = torch.as_tensor(frac, device=cuda_device)
+    for given in (on_card, on_card.clone().requires_grad_()):
+        syn.set_bends([{"layer": 2, "transform": scroll, "modulation": given}])
+        assert torch.equal(syn(lat, frame_idx=fi), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,stems", [("scrolling_drop_patch", False), ("stem_separated_patch", True)])
+def test_example_patch_on_the_card_matches_the_cpu(cuda_device, cpu_draws, tmp_path, name, stems):
+    """An example through render_patch at 32 px, card against CPU with the
+    banks drawn on the CPU (chip_smoke.example_card_vs_cpu: B1's launches on
+    the card exactly chip_smoke.EXAMPLE_B1's): latents and noise within 1e-3
+    of the largest value, bent frames within 1e-3, the scroll's per-frame
+    shift equal; the stem patch with stems written to tmp_path at twice the
+    mix's rate."""
+    import chip_smoke
+
+    sr = 1024 * 12
+    syn_cpu, syn_card, palette = _example_synths(cuda_device)
+    audio_file = None
+    if stems:
+        audio_file = chip_smoke.write_stems(tmp_path / "mix.wav", chip_smoke.two_part_track(2 * sr), 2 * sr)
+    with torch.no_grad():
+        errs = chip_smoke.example_card_vs_cpu(name, cuda_device, chip_smoke.two_part_track(sr), sr, 12, palette,
+                                              syn_cpu, syn_card, audio_file)
+    assert errs["latents"] <= 1e-3 and errs["noise"] <= 1e-3, errs
+    if name == "scrolling_drop_patch":
+        assert errs["frames"] <= 1e-3 and errs["shift_equal"] is True, errs

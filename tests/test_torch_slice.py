@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from ssar_tpu_torch import examples
 from ssar_tpu_torch.audio.features import PARITY_BUDGETS, audio2features
 from ssar_tpu_torch.gan import stylegan2 as ts
 from ssar_tpu_torch.gan.wrapper import StyleGAN2Synthesizer
@@ -140,6 +141,10 @@ def test_port_imports_nothing_of_jax():
             "ssar_tpu_torch/utils/profiling.py", "ssar_tpu_torch/models/resnet.py",
             "ssar_tpu_torch/models/slowfast_r50.py", "ssar_tpu_torch/models/extractors.py",
             "ssar_tpu_torch/models/convert_extractors.py", "ssar_tpu_torch/gan/psp.py"} <= names
+    # every example of the JAX package has its port, and the check reads it
+    ported = examples.PATCHES + examples.SCRIPTS
+    assert sorted(p.stem for p in (ROOT / "examples").glob("*.py")) == sorted(ported)
+    assert {f"ssar_tpu_torch/examples/{name}.py" for name in ported} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
