@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serve, train, test-time-optimization, random-patch and evaluation paths, the other
-model families and their trainers, checkpoint evaluation, the paper's comparison, the extractors and pSp and the
-example patches, once on one CUDA card and check them.
+model families and their trainers, checkpoint evaluation, the paper's comparison, the extractors and pSp, the
+example patches and the multi-rank paths (at world size 1 on the card, 4 gloo ranks on the host), once on one
+CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -65,7 +66,8 @@ Phases (any failure exits non-zero and prints no result line):
      ``_render_eval`` of 192 of its frames at 1024 px into an in-memory sink;
   9. optimize path, standalone configuration with the segmentation loss
      (rv2 objective, N = 512, 6 latents + 6 noise maps, lambda_lap = 1,
-     prediction_similarity_penalty = 0.1), 8 steps; the sliding median's
+     prediction_similarity_penalty = 0.1), 2 steps (cut from 8 for phases
+     26-27); the sliding median's
      forward and backward launch counts are read around this run only and
      checked exactly;
   10. reference check: loss and gradient of both configurations at a small
@@ -121,9 +123,10 @@ Phases (any failure exits non-zero and prints no result line):
      the forward within 1e-4;
   17. the other trainers at the JAX package's defaults: train_audio2latent
      (20 steps, the loss falls; then eval_fcd), train_psagan,
-     train_stylevideogan, train_sslstm (also with the video-patch loss through
-     a 64 px G), 10 steps each, and train_calibration_g at
-     scripts/train_calibration_g.py's defaults cut to 25 steps (the mapping
+     train_stylevideogan, 10 steps each, train_sslstm (also with the
+     video-patch loss through a 64 px G), 5 steps each (cut from 10 for
+     phases 26-27), and train_calibration_g at scripts/train_calibration_g.py's
+     defaults cut to 10 steps (25 before phases 26-27; the mapping
      unchanged); ms a step and peak memory;
   18. reference check at a small size in fp32: every new backbone, the Sashimi
      forward and backward, the Discriminator, PSPEncoder and conv3d noise
@@ -142,7 +145,8 @@ Phases (any failure exits non-zero and prints no result line):
   20. the paper's comparison at scripts/run_study.py's configuration: a
      256 px StyleGAN2 (max_channels 512, random weights, bf16), two 16 s
      synthetic clips at 24576 Hz (cut from 6), the random patch, phase 6's
-     reactor, the comparison's test-time optimization (N = 128, 512 steps)
+     reactor, the comparison's test-time optimization (N = 128, 128 steps
+     a clip, cut from 512 to make room for phases 26-27)
      and the LucidSonicDreams recipe through compare_models, then its
      forward-only pass; the scorer's calibration on the four recipes
      (rendered at 256 px, resized to 128 px); av_feature_study and its report
@@ -163,7 +167,8 @@ Phases (any failure exits non-zero and prints no result line):
      ood.compute, an IR-SE50 GradualStyleEncoder through invert_frames (192
      frames at 256 px, traced once), psp_apply through phase 4's 1024 px
      decoder with and without a latent_mask and autotune over the
-     inversion's batch size, SlowFast R50 over the clip, synchro_saliency;
+     inversion's batch size (one timed call a size, cut from 3 and a
+     warm-up for phases 26-27), SlowFast R50 over the clip, synchro_saliency;
      stage seconds (utils.profiling.StageTimer), peak memory, images/s and
      frames/s, launches exact at each stage; the new call sites' B1 and B2
      times beside their bounds;
@@ -190,7 +195,24 @@ Phases (any failure exits non-zero and prints no result line):
      noise slot within EXAMPLE_REF_RTOL of the largest value, bent frames
      within EXAMPLE_REF_FRAMES, the scroll bend's per-frame shift equal; B1
      exact on the card) and both scripts' main at 64 px (the latents and
-     noise pyramid they would render).
+     noise pyramid they would render);
+  26. parallel/ on the card at world size 1, under an in-process NCCL group
+     (file:// rendezvous under build/, destroyed at the end):
+     audio2features_sharded on phase 4b's 180 s track (one rank takes the
+     whole-track stack: B1 exactly 4, at (1025, 4321); x realtime),
+     synthesize_tp on a (1, 1) ("data", "tp") mesh with phase 4's 1024 px
+     generator, bf16, batch 16 (torch.equal to synthesis), phase 4's 192
+     frames through the frame-sharded render (the same I420 bytes),
+     train.main at phase 6's flags for 8 steps against phase 6's own
+     single-process run on the same seed (its first 8 losses and first
+     validation loss within rtol 1e-6, bit-equal expected; B2 / B3
+     exact), dryrun_multichip(1) at the config of record, then, after
+     the group is destroyed and nothing else is timed, the trainer's CLI
+     under ``torch.distributed.run --standalone --nproc_per_node=1`` for 4
+     steps (exit 0, finite losses);
+  27. dryrun_multichip(4) at the config of record on a (2, 2) mesh of gloo
+     ranks on the host: the sharded trajectory within rtol 5e-4 of one
+     device's and falling, and the 256 px TP synthesis.
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
@@ -201,6 +223,8 @@ import contextlib
 import copy
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -663,6 +687,10 @@ def main():
     example_counts = examples_path(dev, synthesizer.params, config)
     reference_examples(dev)
 
+    # ------------------------------------------------------------ 26-27 --
+    parallel_counts = parallel_path(dev, synthesizer, config, latents, noise, sink.crcs, train_log_dir)
+    multichip_host()
+
     main_row = [r for r in rows if r["shape"] == [1025, 193]]  # both axes: one HPSS
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
     ad_path = [r for r in absdiff_rows if r["path"]]
@@ -681,7 +709,7 @@ def main():
         "launches_longform": long_counts["sliding_median"], "launches_patch": patch_counts["sliding_median"],
         "launches_evaluate": eval_counts["sliding_median"], "launches_checkpoint": checkpoint_counts["sliding_median"],
         "launches_study": study_counts["sliding_median"], "launches_extractors": extractor_counts["sliding_median"],
-        "launches_examples": example_counts["sliding_median"],
+        "launches_examples": example_counts["sliding_median"], "launches_parallel": parallel_counts["sliding_median"],
     }, {
         "name": "sliding_median_generic", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": long_counts["sliding_median_generic"],
@@ -706,19 +734,20 @@ def main():
         "max_abs_err": absdiff_err, **sums(ad_path), "library_ms": None,
         "launches_evaluate": eval_counts["absdiff"], "launches_backbones": backbone_counts["absdiff"],
         "launches_checkpoint": checkpoint_counts["absdiff"], "launches_study": study_counts["absdiff"],
-        "launches_extractors": extractor_counts["absdiff"],
+        "launches_extractors": extractor_counts["absdiff"], "launches_parallel": parallel_counts["absdiff"],
     }, {
         "name": "s4d_vandermonde", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:32", "launches": train_counts["s4d_vandermonde"],
         "max_abs_err": vdm_err, **sums([vdm_path]), "library_ms": None,
         "launches_sashimi": sashimi_counts["s4d_vandermonde"], "launches_checkpoint": checkpoint_counts["s4d_vandermonde"],
-        "launches_study": study_counts["s4d_vandermonde"],
+        "launches_study": study_counts["s4d_vandermonde"], "launches_parallel": parallel_counts["s4d_vandermonde"],
     }, {
         "name": "s4d_vandermonde_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:92", "launches": train_counts["s4d_vandermonde_bwd"],
         "max_abs_err": vdm_bwd_err, **sums([vdm_path], "bwd_"), "library_ms": None,
         "launches_sashimi": sashimi_counts["s4d_vandermonde_bwd"],
         "launches_checkpoint": checkpoint_counts["s4d_vandermonde_bwd"],
+        "launches_parallel": parallel_counts["s4d_vandermonde_bwd"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
@@ -1662,12 +1691,13 @@ def optimize_comparison(dev, track: np.ndarray, config):
 
 
 def optimize_standalone(dev, track: np.ndarray, n_sync: int) -> dict:
-    """Phase 9: the standalone configuration with the segmentation loss, 8
-    steps; returns the sliding median's launch counts of this run."""
+    """Phase 9: the standalone configuration with the segmentation loss, 2
+    steps (8 before phases 26-27); returns the sliding median's launch
+    counts of this run."""
     from ssar_tpu_torch.generate import optimize as opt
     from ssar_tpu_torch.ops import median_cuda
 
-    n_steps, n_pred, n_feat = 8, 2 + STANDALONE["n_noise"], len(opt.AFNS)
+    n_steps, n_pred, n_feat = 2, 2 + STANDALONE["n_noise"], len(opt.AFNS)
     median_cuda.launches = median_cuda.bwd_launches = 0
     torch.cuda.reset_peak_memory_stats()
     (envs, latents, noise, losses), problem, secs = timed_optimize(audio=track, sr=44100, fps=FPS, n_steps=n_steps,
@@ -2520,19 +2550,19 @@ def trainers_path(dev):
     report("train_stylevideogan (latent 32, batch 4, 18 styles, 24 frames)", 10, secs, peak,
            [m["d_losses"], m["g_losses"]])
 
-    (_, m), secs, peak = _timed(lambda: trainers.train_sslstm(ds, n_steps=10, batch_size=4, device=dev))
-    report("train_sslstm (hidden 16, 2 layers, batch 4)", 10, secs, peak, [m["losses"]])
+    (_, m), secs, peak = _timed(lambda: trainers.train_sslstm(ds, n_steps=5, batch_size=4, device=dev))
+    report("train_sslstm (hidden 16, 2 layers, batch 4)", 5, secs, peak, [m["losses"]])
     g_cfg = sg.StyleGAN2Config(resolution=64)
     g_params = sg.init_generator(g_cfg, torch.Generator().manual_seed(SEED), dev)
-    (_, m), secs, peak = _timed(lambda: trainers.train_sslstm(ds, n_steps=10, batch_size=4, gan_params=g_params,
+    (_, m), secs, peak = _timed(lambda: trainers.train_sslstm(ds, n_steps=5, batch_size=4, gan_params=g_params,
                                                               gan_config=g_cfg, video_patch_weight=0.5, device=dev))
-    report("train_sslstm with video_patch_weight 0.5 through a 64 px G", 10, secs, peak, [m["losses"]])
+    report("train_sslstm with video_patch_weight 0.5 through a 64 px G", 5, secs, peak, [m["losses"]])
 
-    # scripts/train_calibration_g.py's defaults, cut to 25 steps
+    # scripts/train_calibration_g.py's defaults, cut to 10 steps
     c_cfg = sg.StyleGAN2Config(resolution=256, max_channels=128)
     init = sg.init_generator(c_cfg, torch.Generator().manual_seed(SEED), dev)
     mapping = _to(init["mapping"], "cpu")
-    (out, secs, peak) = _timed(lambda: palette_g.train_calibration_g(c_cfg, n_steps=25, batch_size=16, lr=2e-3,
+    (out, secs, peak) = _timed(lambda: palette_g.train_calibration_g(c_cfg, n_steps=10, batch_size=16, lr=2e-3,
                                                                      lambda_adv=0.05, r1_gamma=1.0, progress=False,
                                                                      device=dev, params=init))
     params, _, losses = out
@@ -2541,7 +2571,7 @@ def trainers_path(dev):
                    for a, b in zip(params["mapping"], mapping))
     if not (moved and same_map):
         fail(f"train_calibration_g: synthesis moved {moved}, mapping unchanged {same_map}")
-    report("train_calibration_g (256 px, max_channels 128, batch 16, lambda_adv 0.05, R1 1.0, bf16)", 25, secs,
+    report("train_calibration_g (256 px, max_channels 128, batch 16, lambda_adv 0.05, R1 1.0, bf16)", 10, secs,
            peak, [losses["mse"], losses["d_loss"], losses["g_adv"]],
            f"; mapping unchanged; palette alignment {palette_g.palette_target_alignment(params, c_cfg):.3f}")
 
@@ -2700,6 +2730,7 @@ SCORE_B1, SCORE_B2 = 8 + 4, 1
 PREDICT_B1 = {"random_patch": PATCH_B1, "sashimi_ssabsdiff": 4, "ssopt": 6, "lucid": 4}
 RECIPE_B1 = {"low": 0, "high_chroma": 2, "high_onset": 2, "high_both": 4}
 STUDY_SR, STUDY_SECONDS, STUDY_CLIPS = 1024 * FPS, 16, 2   # scripts/run_study.py: 16 s clips, cut from 6 to 2
+STUDY_SSOPT_STEPS = 128   # the comparison's optimizer, cut from its 512 steps a clip (~65 % of the battery)
 
 
 def _raw_tracks(seed: int, lengths: list[int]):
@@ -2906,7 +2937,8 @@ def study_path(dev, log_dir: Path) -> dict:
     reactor, _ = evaluate.load_checkpoint(str(log_dir), device=dev)
     models = {"random_patch": comparison.RandomGenerator(G, fps=FPS, seed=0),
               "sashimi_ssabsdiff": comparison.SupervisedSequenceModel(reactor, fps=FPS, G=G),
-              "ssopt": comparison.SelfSupervisedOptimization(fps=FPS, gan_config=G.config, device=dev),
+              "ssopt": comparison.SelfSupervisedOptimization(fps=FPS, n_steps=STUDY_SSOPT_STEPS, gan_config=G.config,
+                                                             device=dev),
               "lucid": comparison.LucidSonicBaseline(G, fps=FPS)}
     T = STUDY_SECONDS * FPS
 
@@ -3324,7 +3356,7 @@ def extractors_path(dev, eval_frames: dict, clip_audio: np.ndarray, synthesizer,
         fail("psp_apply's style mixing: rows outside the mask changed or the masked rows are not the mix")
     with measured("autotune"):
         best, results = autotune(lambda batch_size: (lambda x: invert_frames(psp, x, batch_size=batch_size, device=dev)),
-                                 [{"batch_size": b} for b in PSP_BATCHES], (clip,), iters=3, warmup=1, device=dev)
+                                 [{"batch_size": b} for b in PSP_BATCHES], (clip,), iters=1, warmup=0, device=dev)
     if any("error" in r for r in results):
         fail(f"autotune over invert_frames' batch size: a configuration erred: {results}")
 
@@ -3768,6 +3800,184 @@ def reference_examples(dev):
         f"the scroll's shifts equal; B1 launches exact; scripts' latents and pyramids "
         + ", ".join(f"{k} {v:.3g}" for k, v in script_errs.items())
         + f"; phase 25 took {time.perf_counter() - t0:.1f} s")
+
+
+# phase 26: phase 6's cell for PARALLEL_STEPS steps, evals at the first step only, no render
+PARALLEL_STEPS = 8
+PARALLEL_FLAGS = TRAIN_FLAGS + ["--eval_every", "1000000", "--ckpt_every", "1000000", "--no-render_at_ckpt"]
+
+
+def parallel_path(dev, synthesizer, config, latents, noise, crcs: list, train_log_dir: Path) -> dict:
+    """Phase 26: ``parallel/`` on the card at world size 1, under an
+    in-process NCCL group (a ``file://`` rendezvous under build/), destroyed
+    at the end: ``audio2features_sharded`` on phase 4b's 180 s track (the
+    whole-track stack at one rank, B1 4 at (1025, 4321)), ``synthesize_tp``
+    on a (1, 1) mesh against ``synthesis`` (torch.equal), phase 4's render
+    through the frame-sharded loop (the same I420 bytes), ``train.main`` at
+    phase 6's flags for 8 steps against the first 8 steps of phase 6's own
+    single-process run on the same seed (losses and the first validation
+    loss equal, B2 / B3 exact) and ``dryrun_multichip(1)`` at the config of
+    record; then the trainer's ``torchrun`` CLI, alone on the card.  Returns
+    the kernels' launches of the features and the trainer under the group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ssar_tpu_torch.gan import stylegan2 as sg
+    from ssar_tpu_torch.generate.audio2video import render_reaction
+    from ssar_tpu_torch.ops import median as median_mod
+    from ssar_tpu_torch.parallel import get_mesh, make_mesh, replicate, shard_batch, synthesize_tp
+    from ssar_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ssar_tpu_torch.parallel.features_sp import audio2features_sharded
+
+    t_phase = time.perf_counter()
+    sr = 1024 * FPS
+    track = synthetic_track(sr, LONG_SECONDS)
+    rdzv = ROOT / "build" / "chip_smoke_runs" / "nccl_rendezvous"
+    rdzv.parent.mkdir(parents=True, exist_ok=True)
+    rdzv.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{rdzv}", rank=0, world_size=1)
+    try:
+        mesh = get_mesh()
+        if not isinstance(mesh, DeviceMesh) or mesh.size() != 1 or dist.get_backend() != "nccl":
+            fail(f"phase 26: get_mesh() {mesh} under a world-1 NCCL group")
+        probe = torch.arange(8.0, device=dev)
+        if shard_batch(probe, mesh) is not probe or replicate({"p": probe}, mesh)["p"] is not probe:
+            fail("phase 26: shard_batch / replicate are not identities at world size 1")
+        total = {}
+
+        # 1. the sharded features: one rank takes the whole-track stack
+        shapes = []
+        real = median_mod.sliding_median_cuda
+
+        def recording(x, k, axis):
+            shapes.append(tuple(x.shape))
+            return real(x, k, axis)
+
+        audio2features_sharded(track, sr, FPS, device=dev)   # cuFFT plans at the whole track's shapes
+        median_mod.sliding_median_cuda = recording
+        try:
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            feats = audio2features_sharded(track, sr, FPS, device=dev)
+            torch.cuda.synchronize()
+            feat_s = time.perf_counter() - t0
+        finally:
+            median_mod.sliding_median_cuda = real
+        T = LONG_SECONDS * FPS
+        if tuple(feats.shape) != (T, 59) or not bool(torch.isfinite(feats).all()):
+            fail(f"phase 26 sharded features {tuple(feats.shape)}")
+        _expect("phase 26 audio2features_sharded", _counts(), sliding_median=4)
+        if shapes != [(1025, T + 1)] * 4:
+            fail(f"phase 26 audio2features_sharded: B1 at {shapes}, expected 4 at (1025, {T + 1})")
+        _add(total, _counts())
+        log(f"[parallel] audio2features_sharded at world size 1 ({LONG_SECONDS} s, the whole-track stack) "
+            f"{tuple(feats.shape)} in {feat_s:.3f} s = {LONG_SECONDS / feat_s:.2f}x realtime; B1 4 at {shapes[0]}")
+
+        # 2. channel-parallel synthesis on a (1, 1) mesh
+        grid = make_mesh((1, 1), ("data", "tp"))
+        lat = latents[:16].to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = synthesize_tp(synthesizer.params, lat, None, config, grid)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+        with torch.no_grad():
+            want = sg.synthesis(synthesizer.params, lat, None, config, dtype=torch.bfloat16)
+        if not isinstance(grid, DeviceMesh) or not torch.equal(got, want):
+            fail(f"phase 26 synthesize_tp on a (1, 1) mesh differs from synthesis by "
+                 f"{float((got - want).abs().max()):.3g}")
+        log(f"[parallel] synthesize_tp on a (1, 1) ('data', 'tp') NCCL mesh, 16 x 1024 px bf16: equal to synthesis "
+            f"(torch.equal), {tp_s:.3f} s")
+
+        # 3. phase 4's render through the frame-sharded loop
+        sink = FrameSink((1536, 1024))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_reaction(latents, noise, output_size=(1024, 1024), batch_size=16, gan_config=config,
+                        synthesizer=synthesizer, writer=sink)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        if sink.crcs != crcs:
+            fail(f"phase 26 render: {sum(a != b for a, b in zip(sink.crcs, crcs))} of {len(crcs)} frames differ "
+                 f"from phase 4's ({len(sink.crcs)} written)")
+        log(f"[parallel] phase 4's render under the group: {len(sink.crcs)} I420 frames, the same bytes (CRC32), "
+            f"{len(sink.crcs) / render_s:.2f} fps")
+
+        # 4. the trainer under the group against the single process
+        _zero_counts()
+        group_dir, _ = run_trainer(PARALLEL_FLAGS, PARALLEL_STEPS, "phase 26 under the NCCL group")
+        counts = _counts()
+        evals = len(_metric_rows(group_dir, "Loss/val"))
+        n = 4   # S4D layers
+        _expect("phase 26 train.main under the group", counts, absdiff=5 * (PARALLEL_STEPS + evals),
+                s4d_vandermonde=n * (PARALLEL_STEPS + 2 * evals), s4d_vandermonde_bwd=n * PARALLEL_STEPS)
+        _add(total, counts)
+        # phase 6's run: the same flags, seed and data stream, evals at the first step too (its later
+        # eval and its renders take no draw from the training generators)
+        one = _metric_rows(train_log_dir, "Loss/ssabsdiff")[:PARALLEL_STEPS]
+        grp = _metric_rows(group_dir, "Loss/ssabsdiff")
+        one_val, group_val = _metric_rows(train_log_dir, "Loss/val")[0], _metric_rows(group_dir, "Loss/val")[0]
+        # an all-reduce over one rank is an identity, and the step takes none: bit-equal is expected;
+        # the check allows float32 round-off (rtol 1e-6) should a kernel's reduction order vary
+        err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(grp, one))
+        if len(grp) != len(one) or err > 1e-6 or abs(group_val - one_val) > 1e-6 * abs(one_val):
+            fail(f"phase 26 train.main under the group: losses {grp} vs phase 6's {one} (rel {err:.3g}), first val "
+                 f"{group_val} vs {one_val}")
+        log(f"[parallel] train.main under the group = phase 6's single process: {len(grp)} losses "
+            f"({'bit-equal' if grp == one else f'within {err:.3g}'}), first val {group_val:.6f}; launches {counts}")
+
+        # 6. the multichip dry run at one rank, on the card
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(1)
+        log(f"[parallel] dryrun_multichip(1) on the card: mesh {dry['mesh']}, losses {dry['losses'][0]:.6f} -> "
+            f"{dry['losses'][-1]:.6f}, TP frames {dry['tp_synth']}, {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+
+    # 5. the torchrun CLI, after the timed items: a second process on the card would share it with them
+    out_dir = ROOT / "build" / "chip_smoke_runs" / "torchrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node=1",
+           "-m", "ssar_tpu_torch.train.train", *PARALLEL_FLAGS, "--n_examples", "128",   # 4 steps of 32
+           "--no-fcd", "--out_dir", str(out_dir)]
+    t_cli = time.perf_counter()
+    with open(out_dir / "torchrun.log", "w") as cli_log:
+        cli = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=cli_log,
+                               stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = cli.wait(timeout=600)
+        except subprocess.TimeoutExpired:   # the launcher and its worker
+            os.killpg(cli.pid, signal.SIGKILL)
+            rc = cli.wait()
+    cli_s = time.perf_counter() - t_cli
+    if rc != 0:
+        fail(f"phase 26 torchrun CLI exited {rc}:\n{(out_dir / 'torchrun.log').read_text()[-4000:]}")
+    runs = sorted(out_dir.glob("*/metrics.csv"), key=lambda q: q.stat().st_mtime)
+    losses = _metric_rows(runs[-1].parent, "Loss/ssabsdiff") if runs else []
+    if len(losses) != 4 or not all(map(math.isfinite, losses)):
+        fail(f"phase 26 torchrun CLI: losses {losses}")
+    log(f"[parallel] torchrun --standalone --nproc_per_node=1 -m ssar_tpu_torch.train.train: exit 0 after "
+        f"{cli_s:.1f} s, losses {[round(v, 5) for v in losses]}")
+    log(f"[parallel] phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def multichip_host():
+    """Phase 27: ``dryrun_multichip(4)`` at the config of record on a (2, 2)
+    mesh of gloo ranks on the host (the JAX function's virtual CPU mesh)."""
+    from ssar_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4)
+    if dry["mesh"] != (2, 2) or dry["tp_synth"] != (4, 256, 256, 3):
+        fail(f"phase 27: mesh {dry['mesh']}, TP frames {dry['tp_synth']}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(dry["losses"], dry["reference"]))
+    log(f"[parallel] dryrun_multichip(4), 4 gloo ranks on the host, (2 x 2) mesh: losses {dry['losses'][0]:.6f} -> "
+        f"{dry['losses'][-1]:.6f}, largest relative difference to one device {err:.3g} (rtol 5e-4); TP frames "
+        f"{dry['tp_synth']}; the ranks {dry['seconds']['sharded']:.1f} s (start included; rank 0's steps "
+        f"{dry['seconds']['rank0_steps']:.1f} s, its synthesis {dry['seconds']['rank0_synthesis']:.1f} s), the "
+        f"one-device run in a thread beside them; phase 27 took {time.perf_counter() - t0:.1f} s")
 
 
 def _to(tree, device):

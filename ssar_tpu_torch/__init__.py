@@ -1,7 +1,11 @@
 """PyTorch / CUDA port of ``ssar_tpu`` for NVIDIA Hopper (H100).
 
 Mirrors the JAX package's layout (``ops/``, ``audio/``, ``models/``,
-``gan/``, ``generate/``) so each module's counterpart is found by name.
+``gan/``, ``generate/``, ``train/``, ``metrics/``, ``video/``, ``parallel/``)
+so each module's counterpart is found by name.  ``parallel`` exports the JAX
+package's ``get_mesh``, ``make_mesh``, ``data_sharding``, ``shard_batch``,
+``replicate``, ``shard_generator_params`` and ``synthesize_tp`` over
+``torch.distributed``; one process with no process group is a world of one.
 The JAX package is the reference this port is held against; the port
 imports none of it.  Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``; they raise when no CUDA device is present rather

@@ -5,13 +5,19 @@ batches, packed to I420 on the device (1.5 bytes per pixel across the
 device-to-host link instead of 3), and double-buffered: on the card, batch
 j + 1 is queued on a side CUDA stream, with its copy into a pinned host
 buffer, while the host hands batch j to the frame writer.
+
+Over several ranks (``parallel.mesh.get_mesh``) each padded batch is split
+over the data axis: every rank synthesises its rows, and rank 0 gathers the
+frames, converts, fetches and writes them; the other ranks write nothing.
 """
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import axis_rank, get_mesh, shard_batch
 from .video_io import VideoWriter
 
 
@@ -67,6 +73,11 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
     `writer` is a context manager with ``write_i420(frame)`` for (H*3//2, W)
     uint8 frames and ``write(frame)`` for (H, W, 3) uint8 frames; the default
     is a ``VideoWriter`` on `out_file`.  Returns the writer.
+
+    Over several ranks every rank calls this with the same arguments; each
+    synthesises its rows of a batch (its frames of lazy noises and animated
+    bends included) and rank 0 alone writes.  Other ranks return their
+    `writer` unused.
     """
     device = synthesizer.device
     latents = torch.as_tensor(latents, dtype=torch.float32).to(device)
@@ -79,25 +90,39 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
     if noises is not None:
         noises = [n if n is None or callable(n) else torch.as_tensor(n).to(device, synthesizer.dtype)
                   for n in noises]
-    if writer is None:
-        writer = VideoWriter(out_file, output_size, fps=fps, audio_file=audio_file,
-                             audio_offset=audio_offset, audio_duration=audio_duration)
+    mesh = get_mesh(device=device)
+    main = mesh.size() == 1 or dist.get_rank() == 0
 
-    def batch_noise(n, i):
+    def batch_noise(n, i, b, lo):
+        """Noise `n` of this rank's `b` rows, frames [lo, lo + b) of the padded batch."""
         if n is None:
             return None
         if isinstance(n, torch.Tensor):
-            return _pad_batch(n[i : i + batch_size], batch_size).permute(0, 2, 3, 1)
-        window = torch.as_tensor(n(i, min(batch_size, T - i))).to(device, synthesizer.dtype)
-        return _pad_batch(window, batch_size)[..., None]
+            return shard_batch(_pad_batch(n[i : i + batch_size], batch_size), mesh).permute(0, 2, 3, 1)
+        # rows past the track repeat its last frame, as the padded batch does
+        window = torch.as_tensor(n(min(lo, T - 1), max(min(b, T - lo), 1))).to(device, synthesizer.dtype)
+        return _pad_batch(window, b)[..., None]
 
     def synth(i):
+        """Batch i's frames (+1) / 2, converted; on ranks other than 0, None."""
+        lat = shard_batch(_pad_batch(latents[i : i + batch_size], batch_size), mesh)
+        b = lat.shape[0]
+        lo = i + (axis_rank(mesh, "data") * b if b < batch_size else 0)
         kw = {}
         if noises is not None:
-            kw["noises"] = [batch_noise(n, i) for n in noises]
+            kw["noises"] = [batch_noise(n, i, b, lo) for n in noises]
         if getattr(synthesizer, "bend_mods", None):
-            kw["frame_idx"] = torch.arange(i, i + batch_size).clamp(max=T - 1)
-        frames = (synthesizer(_pad_batch(latents[i : i + batch_size], batch_size), **kw) + 1.0) / 2.0
+            kw["frame_idx"] = shard_batch(torch.arange(i, i + batch_size).clamp(max=T - 1), mesh)
+        frames = synthesizer(lat, **kw)
+        if b < batch_size:
+            parts = [torch.empty_like(frames) for _ in range(batch_size // b)] if main else None
+            dist.gather(frames.contiguous(), parts, dst=0)
+            if not main:
+                return None
+            frames = torch.cat(parts)
+        elif not main:
+            return None
+        frames = (frames + 1.0) / 2.0
         if postprocess_fn is not None:
             frames = postprocess_fn(frames)
         if transfer == "i420" and tuple(frames.shape[1:3]) == (h_, w_):
@@ -105,6 +130,13 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
         return (torch.clamp(frames, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
 
     starts = list(range(0, T, batch_size))
+    if not main:
+        for i in starts:
+            synth(i)
+        return writer
+    if writer is None:
+        writer = VideoWriter(out_file, output_size, fps=fps, audio_file=audio_file,
+                             audio_offset=audio_offset, audio_duration=audio_duration)
     cuda = device.type == "cuda"
     if cuda:
         stream = torch.cuda.Stream(device)

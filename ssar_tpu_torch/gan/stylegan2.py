@@ -253,7 +253,8 @@ def to_rgb(p: dict, prep: dict, x: torch.Tensor, w: torch.Tensor, skip: torch.Te
 
 def synthesis(params: dict, latents: torch.Tensor, noises: list | None, config: StyleGAN2Config, *,
               dtype=torch.float32, output_size: int | None = None, prep: dict | None = None,
-              return_features: bool = False, bends: dict | None = None, bend_mods: dict | None = None):
+              return_features: bool = False, bends: dict | None = None, bend_mods: dict | None = None,
+              conv_out=None):
     """W+ latents (B, n_latent, 512) [+ noises, a list of (B, H, W, 1) or None]
     -> images (B, R, R, 3) float32 in [-1, 1] (unclamped).
 
@@ -271,6 +272,9 @@ def synthesis(params: dict, latents: torch.Tensor, noises: list | None, config: 
     spatial shape; the caller then passes matching noises or None.  With
     ``return_features`` the activations of each level after its bend, NCHW
     in the synthesis dtype, come back too: ``(images, features)``.
+
+    ``conv_out`` maps each styled conv's output before anything reads it
+    (the channel-parallel synthesis gathers its ranks' channel slices there).
     """
     if prep is None:
         prep = prepare_synthesis(params, config, dtype)
@@ -287,7 +291,8 @@ def synthesis(params: dict, latents: torch.Tensor, noises: list | None, config: 
 
     const = params["const"].to(dtype)
     x = const[None].expand(B, *const.shape)
-    x = bend(0, styled_conv(params["conv1"], prep["conv1"], x, latents[:, 0], noises[0], dtype=dtype))
+    conv_out = conv_out or (lambda y: y)
+    x = bend(0, conv_out(styled_conv(params["conv1"], prep["conv1"], x, latents[:, 0], noises[0], dtype=dtype)))
     feats = [x] if return_features else None   # kept only when asked: each level's activations stay alive
     skip = to_rgb(params["to_rgb1"], prep["to_rgb1"], x, latents[:, 1], dtype=dtype)
 
@@ -295,10 +300,10 @@ def synthesis(params: dict, latents: torch.Tensor, noises: list | None, config: 
         i = 1
         for level, (conv_up, conv) in enumerate(zip(params["convs"][::2], params["convs"][1::2])):
             res = 2 ** (level + 3)
-            x = styled_conv(conv_up, prep["convs"][2 * level], x, latents[:, i], noises[i], up=True,
-                            blur_kernel=config.blur_kernel, dtype=dtype)
-            x = styled_conv(conv, prep["convs"][2 * level + 1], x, latents[:, i + 1], noises[i + 1],
-                            dtype=dtype)
+            x = conv_out(styled_conv(conv_up, prep["convs"][2 * level], x, latents[:, i], noises[i], up=True,
+                                     blur_kernel=config.blur_kernel, dtype=dtype))
+            x = conv_out(styled_conv(conv, prep["convs"][2 * level + 1], x, latents[:, i + 1], noises[i + 1],
+                                     dtype=dtype))
             x = bend(level + 1, x)
             if return_features:
                 feats.append(x)

@@ -23,8 +23,14 @@ The models draw what their flax counterparts draw from ``make_rng`` streams
 (dropout, drop-path, zoneout and attention-dropout masks) through
 ``bernoulli``, which takes the module's ``torch.Generator`` in place of a key
 and draws on `device` from it; a test replaces it by JAX's recorded masks.
+Under ``batch_rows`` (a data-parallel rank's step) a draw whose leading axis
+is the batch is made at the global batch's shape and cut to the rank's rows
+(``global_draw``), so the ranks together draw what one process draws.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -112,3 +118,35 @@ def bernoulli(generator: torch.Generator | None, p: float, shape, device=None) -
     """Boolean draws, True with probability `p`, of `shape` on `device` from
     `generator` (a generator on that device; the default one when None)."""
     return torch.rand(tuple(int(s) for s in shape), generator=generator, device=device) < p
+
+
+_batch_rows: contextvars.ContextVar = contextvars.ContextVar("batch_rows", default=None)
+
+
+@contextlib.contextmanager
+def batch_rows(rank: int, world: int):
+    """Inside, the batch is rows [rank * b, (rank + 1) * b) of a global batch
+    of `world` * b: ``global_draw`` draws at the global shape and keeps those."""
+    token = _batch_rows.set((int(rank), int(world)))
+    try:
+        yield
+    finally:
+        _batch_rows.reset(token)
+
+
+def global_draw(draw, shape, axis: int = 0) -> torch.Tensor:
+    """``draw(shape)``, where ``shape[axis]`` is the batch; under
+    ``batch_rows`` the draw is made at the global batch's size from the same
+    generator state on every rank, and this rank's rows are returned."""
+    rows = _batch_rows.get()
+    shape = tuple(int(s) for s in shape)
+    if rows is None:
+        return draw(shape)
+    rank, world = rows
+    b = shape[axis]
+    return draw(shape[:axis] + (b * world,) + shape[axis + 1:]).narrow(axis, rank * b, b)
+
+
+def batch_bernoulli(generator: torch.Generator | None, p: float, shape, device=None) -> torch.Tensor:
+    """``bernoulli`` of a mask whose leading axis is the batch (``global_draw``)."""
+    return global_draw(lambda s: bernoulli(generator, p, s, device), shape)

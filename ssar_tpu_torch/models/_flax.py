@@ -45,7 +45,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool, generator: torch.Gener
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = keys.bernoulli(generator, keep, x.shape, x.device)
+    mask = keys.batch_bernoulli(generator, keep, x.shape, x.device)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -61,13 +61,13 @@ class VariationalLSTM(nn.Module):
         if self.training and (self.dropouti or self.dropoutw or self.dropouto):
             if self.dropouti:
                 keep = 1 - self.dropouti
-                x = x * keys.bernoulli(generator, keep, (B, 1, x.shape[-1]), x.device) / keep
+                x = x * keys.batch_bernoulli(generator, keep, (B, 1, x.shape[-1]), x.device) / keep
             if self.dropoutw:
                 keep = 1 - self.dropoutw
-                mh = keys.bernoulli(generator, keep, (B, H), x.device).to(x.dtype) / keep
+                mh = keys.batch_bernoulli(generator, keep, (B, H), x.device).to(x.dtype) / keep
             if self.dropouto:
                 keep = 1 - self.dropouto
-                mo = keys.bernoulli(generator, keep, (B, 1, H), x.device).to(x.dtype) / keep
+                mo = keys.batch_bernoulli(generator, keep, (B, 1, H), x.device).to(x.dtype) / keep
         if mh is None:
             y = self.lstm(x)[0]
         else:
@@ -189,7 +189,7 @@ def drop_path(h: torch.Tensor, rate: float, training: bool, generator: torch.Gen
     if rate <= 0 or not training:
         return h
     keep = 1.0 - rate
-    mask = keys.bernoulli(generator, keep, (h.shape[0],) + (1,) * (h.ndim - 1), h.device)
+    mask = keys.batch_bernoulli(generator, keep, (h.shape[0],) + (1,) * (h.ndim - 1), h.device)
     return h * mask / keep
 
 

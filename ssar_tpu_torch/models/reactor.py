@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..generate import keys
 from ..ops.gaussian import gaussian_filter
 from ..ops.resize import resize
 from ._flax import Conv, FlaxModule, dropout, gelu
@@ -69,7 +70,7 @@ def smoothed_noise(shape_bt: tuple[int, int], size: int, sigma: float = 5.0, *,
                    generator: torch.Generator | None = None, device=None) -> torch.Tensor:
     """Time-smoothed standard noise (B, T, size, size): randn smoothed along T."""
     B, T = shape_bt
-    n = torch.randn((T, B, size, size), generator=generator, device=device)
+    n = keys.global_draw(lambda s: torch.randn(s, generator=generator, device=device), (T, B, size, size), axis=1)
     return gaussian_filter(n, sigma).permute(1, 0, 2, 3)
 
 

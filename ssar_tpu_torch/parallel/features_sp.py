@@ -1,16 +1,17 @@
-"""Long-form audio features: the two-pass chunked stack on one card.
+"""Long-form audio features: the two-pass chunked stack, on one card or sharded over the ranks.
 
-Counterpart of the single-device part of ``ssar_tpu/parallel/features_sp.py``
-(``audio2features_long``; the sharded pass waits for ``torch.distributed``).
+Counterpart of ``ssar_tpu/parallel/features_sp.py``: ``audio2features_long``
+runs every chunk on one card; ``audio2features_sharded`` gives each rank of
+the mesh one chunk and gathers their pass-1 outputs with ``all_gather``.
 
 Pass 1 (per chunk, heavy): the track is cut into overlapping chunk windows
 that carry ``HALO_FRAMES`` of context on each side, clamped to the track so
 that no padded sample enters a whole-track statistic.  Each chunk yields its
 frame-local features (mfcc, chroma, tonnetz, contrast, flatness) and raw
-envelopes (the four onset bands' mel power before dB, eight band RMS).  The
-chunks run one after another, as the reference's ``lax.map`` does: each
-chunk's two HPSS passes (the re-separation inside the chromagram is the
-second) launch the sliding-median kernel twice each, so a track of
+envelopes (the four onset bands' mel power before dB, eight band RMS).  On
+one card the chunks run one after another, as the reference's ``lax.map``
+does: each chunk's two HPSS passes (the re-separation inside the chromagram is
+the second) launch the sliding-median kernel twice each, so a track of
 ``n_chunks`` chunks makes ``4 * n_chunks + 2`` launches with the tuning
 estimate's HPSS (14 for 180 s at the default 1440-frame chunks).
 
@@ -33,6 +34,7 @@ from ..audio.processing import emphasize, gaussian_filter, high_pass, low_pass
 from ..ops.quantile import clamp_lower_percentile, clamp_peaks_percentile
 from ..ops.resample import resample
 from ..utils.device import full_precision, resolve_device
+from .mesh import get_mesh
 
 # Receptive half-width of the heaviest local op chain: bottom-octave CQT
 # filters (~32 frames) + CENS temporal smoothing (21) + resampler kernels.
@@ -132,3 +134,53 @@ def audio2features_long(audio, sr: int, fps: int, chunk_frames: int = 1440, clam
         outs = [_core(track[s0 * 1024 : (s0 + cf) * 1024], sr, float(tuning)) for s0 in starts]
         local, mel_bands, rms = zip(*outs)
         return _assemble(local, mel_bands, rms, keep, fpc, T, sr, fps, clamp, smooth)
+
+
+def audio2features_sharded(audio, sr: int, fps: int, mesh=None, clamp: bool = True, smooth: bool = True,
+                           tuning: float | None = None, device: str | torch.device | None = None) -> torch.Tensor:
+    """(T, 59) feature stack with pass 1 sharded over the mesh: the track is
+    cut into one chunk a rank (``_chunk_plan(T, ranks)``), each rank runs
+    ``_core`` on its own chunk, the chunks' outputs are gathered on every rank
+    and every rank assembles and returns the whole track.
+
+    A track no longer than one chunk with its halos (always so on one rank)
+    goes to the whole-track ``audio2features``.  ``tuning=None`` estimates the
+    tuning on rank 0 from the harmonic part of the first chunk's first 4 s
+    and broadcasts it.  `mesh` defaults to ``get_mesh()`` on `device` (the
+    CUDA device unless ``"cpu"``).
+    """
+    import torch.distributed as dist
+
+    device = resolve_device(device)
+    mesh = get_mesh(device=device) if mesh is None else mesh
+    n_dev = mesh.size()
+    audio = torch.as_tensor(audio, dtype=torch.float32).to(device)
+    target_sr = fps * 1024
+    with torch.no_grad(), full_precision():
+        if sr != target_sr:
+            audio = resample(audio, int(sr), target_sr, lowpass_filter_width=6)
+            sr = target_sr
+
+        T = audio.shape[0] // 1024
+        fpc, _, cf, starts, keep = _chunk_plan(T, n_dev)
+        if T <= cf:
+            # one chunk covers the track: the halos would reach past its edges,
+            # so the whole-track stack runs instead (as the JAX package does)
+            kwargs = {} if tuning is None else {"tuning": float(tuning)}
+            return FT.audio2features(audio, sr, fps, clamp=clamp, smooth=smooth, device=device, **kwargs)
+
+        track = audio[: T * 1024]
+        rank = dist.get_rank()
+        if tuning is None:
+            est = torch.zeros((), dtype=torch.float64, device=device)
+            if rank == 0:
+                est.fill_(float(estimate_tuning(FT.harmonic(track[: 4 * sr]), sr, bins_per_octave=36)))
+            dist.broadcast(est, src=0)
+            tuning = float(est)
+        mine = _core(track[starts[rank] * 1024 : (starts[rank] + cf) * 1024], sr, float(tuning))
+        gathered = []
+        for x in mine:
+            parts = [torch.empty_like(x) for _ in range(n_dev)]
+            dist.all_gather(parts, x.contiguous())
+            gathered.append(parts)
+        return _assemble(*gathered, keep, fpc, T, sr, fps, clamp, smooth)

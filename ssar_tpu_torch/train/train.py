@@ -27,20 +27,35 @@ Runs on the CUDA device unless ``--device cpu`` (or ``device="cpu"``) is given.
 The JAX trainer's K-step ``train_step_scan`` (its fusion of steps against its
 runtime's dispatch latency) has no counterpart: the port steps one at a time.
 
+Data parallel over the ranks of ``parallel.mesh.get_mesh()`` (one process a
+card, as ``torchrun`` starts them): the model and the Adam state are
+broadcast from rank 0 (``replicate``) at the start and after a resume; each
+rank steps on its rows of the global batch (``shard_batch``), its noise and
+dropout draws made at the global batch's shape and cut to its rows
+(``keys.batch_rows``), so the ranks draw what one process draws; the
+gradients and the loss are averaged over the ranks before the global-norm
+clip.  Evaluation runs whole on every rank; rank 0 alone prints and writes
+logs, checkpoints, diagnostics and the renders' files.
+
     python -m ssar_tpu_torch.train.train --smoke --decoder fixed --backbone sashimi --device cpu
+    python -m torch.distributed.run --standalone --nproc_per_node=N -m ssar_tpu_torch.train.train ...
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..generate import keys
 from ..models.reactor import LatentNoiseReactor
 from ..ops.absdiff import batch_absdiff
+from ..parallel.mesh import axis_rank, axis_size, get_mesh, replicate, shard_batch
 from ..utils.device import resolve_device
 from .data import compute_stats, load_cached, prefetch, synthetic_dataset
 from .losses import audio_reactive_loss, supervised_loss, supervised_loss_per_example
@@ -145,6 +160,10 @@ def make_train_step(model: LatentNoiseReactor, optimizer: ClippedAdam, loss_mode
       (int tensor on the device) of the device-resident arrays `data`.
     - ``eval_step(batch, generator) -> (mode_loss (B,), mse, latent sample,
       flattened latent sequences)``, without dropout and gradients.
+
+    Over several ranks (``get_mesh``), the train steps take the global batch
+    (or ``sel``), step on this rank's rows and average the gradients and the
+    loss over the ranks; ``eval_step`` runs whole.
     """
     device = resolve_device(device)
     if loss_mode not in ("supervised", "selfsupervised", "ssabsdiff"):
@@ -156,15 +175,36 @@ def make_train_step(model: LatentNoiseReactor, optimizer: ClippedAdam, loss_mode
         if p.device.type != device.type:
             raise ValueError(f"model parameters on {p.device}, expected {device}: move the model first")
 
-    def train_step(batch, generators):
+    mesh = get_mesh(device=device)
+    world = mesh.size()
+
+    def local_step(batch, generators, draws):
         model.train()
-        loss, _, _ = _loss(model, loss_mode, batch, *generators)
+        with draws:
+            loss, _, _ = _loss(model, loss_mode, batch, *generators)
         grads = torch.autograd.grad(loss, params)
+        if world > 1:   # the mean over the ranks' equal shards: the global batch's gradient, clipped after
+            flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+            dist.all_reduce(flat)
+            flat /= world
+            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads] + [1]), grads)]
+            loss = flat[-1]
         optimizer.step(grads)
         return loss.detach()
 
+    def draws_of(local_rows: int, global_rows: int):
+        if local_rows == global_rows:   # one rank, or a batch kept whole (shard_batch warned)
+            return contextlib.nullcontext()
+        return keys.batch_rows(axis_rank(mesh, "data"), axis_size(mesh, "data"))
+
+    def train_step(batch, generators):
+        local = tuple(shard_batch(x, mesh) for x in batch)
+        return local_step(local, generators, draws_of(local[0].shape[0], batch[0].shape[0]))
+
     def train_step_gather(data, sel, generators):
-        return train_step(tuple(a.index_select(0, sel) for a in data), generators)
+        local = shard_batch(sel, mesh)
+        return local_step(tuple(a.index_select(0, local) for a in data), generators,
+                          draws_of(local.shape[0], sel.shape[0]))
 
     @torch.no_grad()
     def eval_step(batch, generator):
@@ -225,6 +265,16 @@ def render_checkpoint_sample(model, args, out_file: str, gan_config=None,
     finally:
         model.train(was_training)
     return out_file
+
+
+class _NoWriter:
+    """The metrics writer of a rank other than 0: it writes nothing."""
+
+    def scalar(self, tag: str, value: float, step: int):
+        pass
+
+    def close(self):
+        pass
 
 
 class MetricsWriter:
@@ -311,6 +361,9 @@ def main(argv=None):
 
         args = apply_config_file(parser, args, args.config, argv)
     device = resolve_device(args.device)
+    mesh = get_mesh(device=device)
+    main_rank = mesh.size() == 1 or dist.get_rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
 
     if args.smoke:  # shrink only values the user didn't set explicitly
         for name, value in (("n_examples", 64 * 4), ("batch_size", 8), ("eval_every", 128),
@@ -341,21 +394,30 @@ def main(argv=None):
     model = make_model(args, mean, std, palette).to(device)
     n_params = sum(p.numel() for p in model.parameters())
     optimizer = ClippedAdam([p for p in model.parameters() if p.requires_grad], args.lr, args.grad_clip)
+    replicate(model, mesh)
+    replicate(optimizer.state_dict(), mesh)
     train_step, train_step_gather, eval_step = make_train_step(model, optimizer, args.loss, device)
     gens = (torch.Generator(device).manual_seed(args.seed), torch.Generator(device).manual_seed(args.seed + 1))
 
     name = "_".join([args.backbone, args.loss, args.decoder, f"split{args.n_latent_split}",
                      f"hid{args.hidden_size}", f"layers{args.num_layers}", f"lr{args.lr}"])
-    log_dir = Path(args.out_dir) / f"{name}_{int(time.time())}"
-    writer = MetricsWriter(log_dir)
-    (log_dir / "config.json").write_text(json.dumps(vars(args)))
-    np.save(log_dir / "input_mean.npy", np.asarray(mean))
-    np.save(log_dir / "input_std.npy", np.asarray(std))
-    print(f"model: {n_params/1e3:.1f}K params on {device} -> {log_dir}")
-    (log_dir / "ckpt").mkdir(exist_ok=True)
+    stamp = [int(time.time())]
+    if mesh.size() > 1:
+        dist.broadcast_object_list(stamp, src=0)   # one run directory, named by rank 0
+    log_dir = Path(args.out_dir) / f"{name}_{stamp[0]}"
+    writer = MetricsWriter(log_dir) if main_rank else _NoWriter()
+    if main_rank:
+        (log_dir / "config.json").write_text(json.dumps(vars(args)))
+        np.save(log_dir / "input_mean.npy", np.asarray(mean))
+        np.save(log_dir / "input_std.npy", np.asarray(std))
+        (log_dir / "ckpt").mkdir(exist_ok=True)
+    say(f"model: {n_params/1e3:.1f}K params on {device}"
+        + (f", {mesh.size()} data-parallel ranks" if mesh.size() > 1 else "") + f" -> {log_dir}")
 
     def save_checkpoint(next_it: int):
         # full training state; "step" is the next example index to train
+        if not main_rank:
+            return
         torch.save({"params": model.state_dict(), "opt_state": optimizer.state_dict(),
                     "generators": [g.get_state() for g in gens], "step": next_it},
                    log_dir / "ckpt" / f"step_{next_it:09d}.pt")
@@ -368,7 +430,9 @@ def main(argv=None):
         for g, state in zip(gens, ckpt["generators"]):
             g.set_state(state.cpu())
         start_it = int(ckpt["step"])
-        print(f"resumed from {args.resume} at example {start_it}")
+        replicate(model, mesh)
+        replicate(optimizer.state_dict(), mesh)
+        say(f"resumed from {args.resume} at example {start_it}")
 
     # windowed shards go to the card when they fit; the raw streaming cache stays memory-mapped on the host
     data_bytes = sum(a.nbytes for a in train_ds.arrays) if hasattr(train_ds, "arrays") else None
@@ -380,7 +444,7 @@ def main(argv=None):
     if device_data is None:
         batches = prefetch(train_ds.batches_from(idx_stream))
     size = f"{data_bytes/1e6:.0f} MB" if data_bytes is not None else f"raw cache, {len(train_ds)} windows"
-    print(f"training: {args.n_examples} examples, batch {args.batch_size}, {n_frames} frames/window, data "
+    say(f"training: {args.n_examples} examples, batch {args.batch_size}, {n_frames} frames/window, data "
           f"{f'resident on {device}' if device_data is not None else 'host-streamed'} ({size})", flush=True)
 
     # the FCD context encoder, fitted once on real validation latent sequences
@@ -394,7 +458,7 @@ def main(argv=None):
             fcd_real = fcd_real.reshape(n_fit, n_frames, -1).astype(np.float32)
             fcd_encode = train_encoder(fcd_real, n_steps=40, features=16, embed_dim=32, device=device)
         except Exception as e:  # the FCD never stops training
-            print(f"FCD encoder unavailable: {e}")
+            say(f"FCD encoder unavailable: {e}")
 
     render_gan_config = None
     if args.stylegan is None:
@@ -418,12 +482,13 @@ def main(argv=None):
         return losses
 
     def render(it_tag: int, what: str):
+        # every rank renders its frames of each batch (the render is frame-sharded); rank 0 writes
         try:  # the render never stops training (as in the JAX trainer)
             out = render_checkpoint_sample(model, args, str(log_dir / f"sample_{it_tag:08d}.mp4"),
                                            gan_config=render_gan_config, device=device)
-            print(f"{what}: {out}")
+            say(f"{what}: {out}")
         except Exception as e:
-            print(f"{what} skipped: {type(e).__name__}: {e}")
+            say(f"{what} skipped: {type(e).__name__}: {e}")
 
     def diagnostics(it_tag: int):
         """Autocorrelation grids of the first validation window: one forward
@@ -481,11 +546,12 @@ def main(argv=None):
                     fake = torch.cat(fake_seqs)
                     writer.scalar("Eval/FCD", context_fid(fcd_encode, fcd_real[: len(fake)], fake), it)
                 except Exception as e:
-                    print(f"FCD skipped: {e}")
-            diagnostics(it)
+                    say(f"FCD skipped: {e}")
+            if main_rank:
+                diagnostics(it)
             rate = (it + args.batch_size - start_it) / (time.time() - t0)
             train_loss = float(np.mean(losses)) if losses else float("nan")
-            print(f"iter {it}  train {train_loss:.4f}  val {val_loss:.4f}  {rate:.1f} ex/s", flush=True)
+            say(f"iter {it}  train {train_loss:.4f}  val {val_loss:.4f}  {rate:.1f} ex/s", flush=True)
         elif len(pending) * args.batch_size >= flush_window:
             flush_pending()
 
@@ -501,9 +567,10 @@ def main(argv=None):
     if args.render_at_ckpt:
         render(args.n_examples, "final checkpoint render")
     writer.close()
-    (log_dir / "final_metrics.json").write_text(json.dumps(
-        {"val_loss": val_loss, "val_loss_median": val_loss_median}))
-    print(f"done: val_loss {val_loss:.4f} (median {val_loss_median:.4f}), checkpoints in {log_dir}/ckpt")
+    if main_rank:
+        (log_dir / "final_metrics.json").write_text(json.dumps(
+            {"val_loss": val_loss, "val_loss_median": val_loss_median}))
+    say(f"done: val_loss {val_loss:.4f} (median {val_loss_median:.4f}), checkpoints in {log_dir}/ckpt")
     return log_dir, val_loss
 
 

@@ -2,12 +2,15 @@
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means the CUDA device.
+    """``device`` as a ``torch.device``; ``None`` means the CUDA device, and
+    under ``torchrun`` (``LOCAL_RANK`` set) this rank's card, ``cuda:LOCAL_RANK``,
+    made the current device.
 
     Raises when ``None`` is given and no CUDA device is present: entry points
     never fall back to the CPU on their own (pass ``device="cpu"`` for that).
@@ -15,7 +18,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
+        local = os.environ.get("LOCAL_RANK")
+        if local is None:
+            return torch.device("cuda")
+        device = torch.device("cuda", int(local))
+        if torch.cuda.current_device() != device.index:
+            torch.cuda.set_device(device)
+        return device
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")

@@ -25,7 +25,10 @@ held card against CPU at 1e-4 of the largest magnitude.  Example patches
 (``scrolling_drop_patch``, ``stem_separated_patch`` with stems) go through
 ``render_patch`` on the card and on the CPU at 32 px with the noise banks
 drawn on the CPU, within 1e-3, B1's launches exact; ``set_bends`` takes a
-CUDA modulation (fault C5).
+CUDA modulation (fault C5).  The multi-rank helpers at world size 1 on an
+NCCL group: ``shard_batch`` and ``replicate`` are identities and
+``synthesize_tp`` on a (1, 1) mesh equals ``synthesis`` (torch.equal);
+``resolve_device`` under ``torchrun``'s ``LOCAL_RANK``.
 """
 import pytest
 import torch
@@ -662,3 +665,48 @@ def test_example_patch_on_the_card_matches_the_cpu(cuda_device, cpu_draws, tmp_p
     assert errs["latents"] <= 1e-3 and errs["noise"] <= 1e-3, errs
     if name == "scrolling_drop_patch":
         assert errs["frames"] <= 1e-3 and errs["shift_equal"] is True, errs
+
+
+@pytest.fixture
+def nccl_world_of_one(cuda_device, tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0, world_size=1)
+    try:
+        yield cuda_device
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_mesh_helpers_and_synthesize_tp_at_world_size_one(nccl_world_of_one):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ssar_tpu_torch.gan import stylegan2 as sg
+    from ssar_tpu_torch.parallel import get_mesh, make_mesh, replicate, shard_batch, synthesize_tp
+
+    dev = nccl_world_of_one
+    mesh = get_mesh()
+    assert isinstance(mesh, DeviceMesh) and mesh.size() == 1 and mesh.device_type == "cuda"
+    x = torch.arange(12.0, device=dev).reshape(4, 3)
+    tree = {"a": x, "b": [x]}
+    assert shard_batch(x, mesh) is x and replicate(tree, mesh) is tree
+    config = sg.StyleGAN2Config(resolution=64)
+    params = sg.init_generator(config, torch.Generator().manual_seed(0), device=dev)
+    lat = torch.randn((4, config.n_latent, 512), generator=torch.Generator().manual_seed(1)).to(dev)
+    grid = make_mesh((1, 1), ("data", "tp"))
+    assert isinstance(grid, DeviceMesh)
+    got = synthesize_tp(params, lat, None, config, grid)
+    with torch.no_grad():
+        want = sg.synthesis(params, lat, None, config, dtype=torch.bfloat16)
+    assert got.shape == (4, 64, 64, 3) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_resolve_device_under_torchrun(cuda_device, monkeypatch):
+    from ssar_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert resolve_device() == torch.device("cuda", 0) and torch.cuda.current_device() == 0
+    monkeypatch.delenv("LOCAL_RANK")
+    assert resolve_device() == torch.device("cuda")

@@ -140,7 +140,9 @@ def test_port_imports_nothing_of_jax():
             "ssar_tpu_torch/metrics/study.py", "ssar_tpu_torch/audio/extra.py", "ssar_tpu_torch/audio/parity.py",
             "ssar_tpu_torch/utils/profiling.py", "ssar_tpu_torch/models/resnet.py",
             "ssar_tpu_torch/models/slowfast_r50.py", "ssar_tpu_torch/models/extractors.py",
-            "ssar_tpu_torch/models/convert_extractors.py", "ssar_tpu_torch/gan/psp.py"} <= names
+            "ssar_tpu_torch/models/convert_extractors.py", "ssar_tpu_torch/gan/psp.py",
+            "ssar_tpu_torch/parallel/mesh.py", "ssar_tpu_torch/parallel/synthesis_tp.py",
+            "ssar_tpu_torch/parallel/dryrun.py", "ssar_tpu_torch/parallel/launch.py"} <= names
     # every example of the JAX package has its port, and the check reads it
     ported = examples.PATCHES + examples.SCRIPTS
     assert sorted(p.stem for p in (ROOT / "examples").glob("*.py")) == sorted(ported)
