@@ -15,7 +15,17 @@ Phases (any failure exits non-zero and prints no result line):
      shapes, lines no longer than k // 2 and inputs holding NaNs (NaNs in the
      same places), and its time and device time beside the plain version's
      and its bound; the generic kernels (odd k > 31, forward and backward) at
-     k = 33 and 63 the same way;
+     k = 33, 63, 127, 255 and 545 the same way (timed at (1025, 193) at
+     k = 33 and 63);
+  3d. hpss at ks = 63 (the generic kernels' user path): hpss(stft(audio),
+     ks=63) on phase 4's 8 s track at the features' rate, (1025, 193), and on
+     phase 4b's 180 s track, (1025, 4321), 2 generic forward launches a call
+     and no templated one, medians and masks equal to the plain versions,
+     timed beside ks = 31 on the same STFT; the gradient of
+     median_filter(S, 63, axis) on both axes (one generic forward and
+     backward launch each, bit-equal to the plain version and to a second
+     launch); card against CPU at (1025, 49).  Every other path launches no
+     generic kernel (checked);
   3b. kernel check: absdiff (B2) and the S4D Vandermonde forward and backward
      (B3) against their plain versions at the train path's shapes, the
      Sashimi U-Net's (32, 32, 192), (64, 32, 48) and (128, 32, 12), a 3-minute
@@ -500,6 +510,7 @@ class RGBSink:
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     from ssar_tpu_torch.audio.features import PARITY_BUDGETS, audio2features
@@ -530,11 +541,16 @@ def main():
         log(f"[build] {name}: nvcc {info['seconds']:.2f} s; ptxas: {lines[:2]}")
 
     # ----------------------------------------------------------- 3, 3c --
+    t_phase3 = time.perf_counter()
     track40 = synthetic_track(44100, 40.0, section_seconds=8.0)
     n_sync = beat_sync_frames(track40, 44100, dev)
     rows, max_err = check_median(dev, n_sync)
     bwd_rows, bwd_err = check_median_bwd(dev, n_sync)
     generic_rows, generic_err = check_median_generic(dev)
+    # --------------------------------------------------------------- 3d --
+    t_phase3d = time.perf_counter()
+    wide_counts = wide_hpss_path(dev)
+    log(f"[kernel] phases 3 and 3c took {t_phase3d - t_phase3:.1f} s, phase 3d {time.perf_counter() - t_phase3d:.1f} s")
 
     # --------------------------------------------------------------- 3b --
     absdiff_rows, absdiff_err = check_absdiff(dev)
@@ -712,14 +728,15 @@ def main():
         "launches_examples": example_counts["sliding_median"], "launches_parallel": parallel_counts["sliding_median"],
     }, {
         "name": "sliding_median_generic", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
-        "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": long_counts["sliding_median_generic"],
+        "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": wide_counts["sliding_median_generic"],
         "max_abs_err": generic_err,
-        # no path runs k > 31: both axes of (1025, 193) at k = 33
-        **sums([r for r in generic_rows if r["k"] == 33]), "library_ms": None,
+        # phase 3d's hpss at ks = 63: both axes of (1025, 193)
+        **sums([r for r in generic_rows if r["k"] == WIDE_KS]), "library_ms": None,
     }, {
         "name": "sliding_median_generic_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median_bwd.cu",
-        "replaces": "ssar_tpu/ops/median_pallas.py:110", "launches": long_counts["sliding_median_generic_bwd"],
-        "max_abs_err": generic_err, **sums([r for r in generic_rows if r["k"] == 33], "bwd_"), "library_ms": None,
+        "replaces": "ssar_tpu/ops/median_pallas.py:110", "launches": wide_counts["sliding_median_generic_bwd"],
+        "max_abs_err": generic_err, **sums([r for r in generic_rows if r["k"] == WIDE_KS], "bwd_"),
+        "library_ms": None,
     }, {
         "name": "sliding_median_bwd", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median_bwd.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:110", "launches": opt_counts["sliding_median_bwd"],
@@ -749,6 +766,7 @@ def main():
         "launches_checkpoint": checkpoint_counts["s4d_vandermonde_bwd"],
         "launches_parallel": parallel_counts["s4d_vandermonde_bwd"],
     }]
+    log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1083,7 +1101,11 @@ def check_median_bwd(dev, n_sync: int):
     return rows, max_err
 
 
-GENERIC = [((1025, 193), 33), ((1025, 193), 63), ((3, 40, 70), 33), ((37, 16), 63), ((5, 9), 33)]
+# the generic kernels' widths: forward tiles of 8 lines within 48 KB of shared memory (k = 33 to 255) and above
+# it (545); timed at (1025, 193) for k = 33 and 63 (scripts/bench_torch_median.py times the others; the card
+# tests hold the tiles of fewer lines, k = 4097 to 12001)
+GENERIC = [((1025, 193), 33), ((1025, 193), 63), ((1025, 193), 127), ((1025, 193), 255), ((3, 40, 70), 33),
+           ((37, 16), 63), ((5, 9), 33), ((40, 600), 545)]
 
 
 def check_median_generic(dev):
@@ -1116,7 +1138,7 @@ def check_median_generic(dev):
                 if kind != "distinct":
                     continue
                 max_err = max(max_err, float((out - want).abs().max()), float((gx - want_gx).abs().max()))
-                if shape != (1025, 193):
+                if shape != (1025, 193) or k > WIDE_KS:
                     continue
                 fwd = lambda: median_cuda.sliding_median_cuda(x, k, a)  # noqa: E731
                 bwd = lambda: median_cuda.sliding_median_bwd_cuda(x, out, cot, k, a)  # noqa: E731
@@ -1134,6 +1156,93 @@ def check_median_generic(dev):
     log(f"[kernel] sliding_median generic (k > 31) forward and backward bit-exact on {len(GENERIC)} shapes x both "
         f"axes x (distinct, tied, NaN) inputs")
     return rows, max_err
+
+
+WIDE_KS = 63   # phase 3d's HPSS width, above the templated kernels' 31
+
+
+def wide_hpss_path(dev) -> dict:
+    """Phase 3d: ``hpss(stft(audio), ks=63)`` through the public entry points
+    on phase 4's 8 s track at the features' rate, (1025, 193), and on phase
+    4b's 180 s track, (1025, 4321): exactly 2 generic forward launches a call
+    and no templated one, the medians equal to ``median_filter_plain`` and the
+    separation equal to the same masks over the plain medians; timed beside
+    ``ks=31`` on the same input.  Then the gradient of ``median_filter(S, 63,
+    axis)`` on both axes (one generic forward and one backward launch each,
+    equal to ``sliding_median_bwd_plain`` and to a second launch), and at 2 s,
+    (1025, 49), the separation and the gradients card against the CPU port on
+    the same magnitude.  Returns the path's launch counts."""
+    from ssar_tpu_torch.audio.spectral import hpss, magphase, softmask, stft
+    from ssar_tpu_torch.ops import median_cuda
+    from ssar_tpu_torch.ops.median import median_filter, median_filter_plain, sliding_median_bwd_plain
+    from ssar_tpu_torch.ops.resample import resample
+
+    sr = 1024 * FPS
+    with torch.no_grad():
+        serve = resample(torch.as_tensor(synthetic_track(44100, 8.0), device=dev), 44100, sr, lowpass_filter_width=6)
+    tracks = {"8 s": serve, f"{LONG_SECONDS} s": torch.as_tensor(synthetic_track(sr, LONG_SECONDS), device=dev)}
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    total = {"sliding_median_generic": 0, "sliding_median_generic_bwd": 0}
+
+    def counted():   # the path's generic launches since _zero_counts, once _expect has held them (8 / 4 in all)
+        total["sliding_median_generic"] += median_cuda.generic_launches
+        total["sliding_median_generic_bwd"] += median_cuda.generic_bwd_launches
+
+    k = WIDE_KS
+    for name, track in tracks.items():
+        S = stft(track)
+        torch.cuda.synchronize()
+        _zero_counts()
+        H, P = hpss(S, ks=k)
+        torch.cuda.synchronize()
+        _expect(f"hpss(stft({name}), ks={k})", _counts(sliding_median_generic=2))
+        counted()
+        mag, phase = magphase(S)
+        harm, perc = median_filter_plain(mag, k, -1), median_filter_plain(mag, k, -2)
+        _zero_counts()
+        if not (torch.equal(median_filter(mag, k, -1), harm) and torch.equal(median_filter(mag, k, -2), perc)):
+            fail(f"hpss medians at ks={k} on {name} differ from the plain version")
+        _expect(f"the medians of {name} at ks={k}", _counts(sliding_median_generic=2))   # a check: not counted
+        want_h = (mag * softmask(harm, perc, power=2.0, split_zeros=True)) * phase
+        want_p = (mag * softmask(perc, harm, power=2.0, split_zeros=True)) * phase
+        if not (torch.equal(H, want_h) and torch.equal(P, want_p)):
+            fail(f"hpss at ks={k} on {name} differs from the masks over the plain medians")
+        # the gradient of each median filter, then a second backward launch
+        cot = torch.randn(mag.shape, generator=g, device=dev)
+        for axis in (-1, -2):
+            leaf = mag.clone().requires_grad_()
+            _zero_counts()
+            out = median_filter(leaf, k, axis)
+            (gx,) = torch.autograd.grad(out, leaf, cot)
+            torch.cuda.synchronize()
+            _expect(f"median_filter(S, {k}, {axis}) and its gradient on {name}",
+                    _counts(sliding_median_generic=1, sliding_median_generic_bwd=1))
+            counted()
+            again = median_cuda.sliding_median_bwd_cuda(mag, out.detach(), cot, k, axis % 2)
+            if not torch.equal(gx, sliding_median_bwd_plain(mag, out.detach(), cot, k, axis)) or not torch.equal(gx, again):
+                fail(f"the gradient of median_filter(S, {k}, {axis}) on {name} differs from the plain version "
+                     f"or between launches")
+        # timed: hpss at ks = 63 beside ks = 31 on the same STFT
+        c63, d63 = cuda_ms(lambda: hpss(S, ks=k)), device_ms_per_call(lambda: hpss(S, ks=k))
+        c31, d31 = cuda_ms(lambda: hpss(S, ks=31)), device_ms_per_call(lambda: hpss(S, ks=31))
+        log(f"[hpss{k}] hpss(stft({name}), ks={k}) on {tuple(S.shape)}: call {c63:.4f} ms, device {d63:.4f} ms; "
+            f"ks=31 call {c31:.4f} ms, device {d31:.4f} ms ({d63 / d31:.2f}x the device time); medians, masks and "
+            f"gradients equal to the plain versions on both axes; launches exact (2 generic a call)")
+    # card against the CPU port at a small size, on one magnitude
+    small = stft(torch.as_tensor(synthetic_track(sr, 2.0))).abs()
+    cot = torch.randn(small.shape, generator=torch.Generator().manual_seed(SEED + 16))
+    for where, S in (("card", small.to(dev)), ("cpu", small)):
+        got = [t.cpu() for t in hpss(S, ks=k)]
+        for axis in (-1, -2):
+            leaf = S.clone().requires_grad_()
+            got.append(torch.autograd.grad(median_filter(leaf, k, axis), leaf, cot.to(S.device))[0].cpu())
+        if where == "card":
+            card = got
+    if not all(torch.equal(a, b) for a, b in zip(card, got)):
+        errs = [float((a - b).abs().max()) for a, b in zip(card, got)]
+        fail(f"hpss(ks={k}) and the median gradients card vs CPU at {tuple(small.shape)} differ: {errs}")
+    log(f"[hpss{k}] hpss(ks={k}) and both median gradients at {tuple(small.shape)} equal on the card and the CPU")
+    return total
 
 
 def device_kernels(fn) -> list[str]:
@@ -2691,11 +2800,16 @@ def _zero_counts():
     vandermonde_cuda.launches = vandermonde_cuda.bwd_launches = 0
 
 
-def _counts() -> dict:
+def _counts(sliding_median_generic: int = 0, sliding_median_generic_bwd: int = 0) -> dict:
+    """The launch counts of the kernels in COUNTED since ``_zero_counts``;
+    fails unless the generic (k > 31) median kernels were launched exactly as
+    often as the path expects (0 on every path but phase 3d's)."""
     from ssar_tpu_torch.ops import absdiff_cuda, median_cuda, vandermonde_cuda
 
-    if median_cuda.generic_launches or median_cuda.generic_bwd_launches:
-        fail("a path launched the generic (k > 31) median kernels, which no caller asks for")
+    got = (median_cuda.generic_launches, median_cuda.generic_bwd_launches)
+    if got != (sliding_median_generic, sliding_median_generic_bwd):
+        fail(f"the generic (k > 31) median kernels: {got} forward / backward launches, expected "
+             f"{(sliding_median_generic, sliding_median_generic_bwd)}")
     return {"sliding_median": median_cuda.launches, "sliding_median_bwd": median_cuda.bwd_launches,
             "absdiff": absdiff_cuda.launches, "s4d_vandermonde": vandermonde_cuda.launches,
             "s4d_vandermonde_bwd": vandermonde_cuda.bwd_launches}

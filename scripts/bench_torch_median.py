@@ -3,9 +3,11 @@ the host's time of one call at the optimizer's shapes, piece by piece.
 
     python3 scripts/bench_torch_median.py [--tree DIR ...]
 
-Device time (torch.profiler over 20 launches, the kernels' own time) of the
-forward and the backward at (1025, 4320) and (1025, 193), k = 31, along both
-axes, and at (164, 82) k = 7 and (82, 82) k = 9.  At those last two shapes,
+Device time (torch.profiler over 20 launches, the kernels' own time; 3 to 20
+where a launch takes more than 10 ms) of the forward and the backward at
+(1025, 4320) and (1025, 193), k = 31, along both axes, at (164, 82) k = 7 and
+(82, 82) k = 9, and of the generic kernels (odd k > 31) at k = 33, 63, 127
+and 255 at (1025, 193) and (1025, 4321), both axes.  At those last two shapes,
 the test-time optimizer's, the kernels take a few microseconds and the call is
 the host's: the script also times 1,000 calls of ``median_filter`` (forward
 alone, and forward + backward through autograd), of the two ctypes wrappers,
@@ -46,12 +48,17 @@ def per_call_us(fn, n: int = N_CALLS) -> float:
 
 
 def device_us(fn, calls: int = 20) -> float:
-    """Device time of one call from torch.profiler, in µs."""
+    """Device time of one call from torch.profiler, in µs; fewer calls (at
+    least 3) where one takes more than 10 ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    calls = max(3, min(calls, int(0.2 / max(time.perf_counter() - t0, 1e-9))))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
@@ -69,7 +76,9 @@ def whole_calls() -> dict:
 
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for shape, k in (((1025, 4320), 31), ((1025, 193), 31), ((164, 82), 7), ((82, 82), 9)):
+    shapes = [((1025, 4320), 31), ((1025, 193), 31), ((164, 82), 7), ((82, 82), 9)]
+    shapes += [((1025, T), k) for T in (193, 4321) for k in (33, 63, 127, 255)]  # the generic kernels
+    for shape, k in shapes:
         x = torch.rand(shape, generator=gen, device="cuda")
         cot = torch.rand(shape, generator=gen, device="cuda")
         for axis in (1, 0):

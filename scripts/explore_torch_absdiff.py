@@ -4,28 +4,23 @@
 
 Each variant is ``csrc/absdiff.cu`` with a few text substitutions (the plan's
 constants, the launch bounds, the loop over units), compiled with nvcc in
-parallel into ``build/absdiff_variants/`` and bound with ctypes beside the
-package's own wrapper (``ops/absdiff_cuda.bind``).  At each shape it times
-(torch.profiler over 20 calls, µs a call) every variant on the same input,
-the base first and again last, and ``x.sum()`` on the same tensor as a
-yardstick of what one read of these bytes takes on this card; it checks each
-variant against the plain version (float32 at rtol 1e-5, half types within
-one unit in the last place of the float32 result cast) and prints each
-variant's registers and spills from ``-Xptxas -v``.  Prints the card's name
-and power limit first.
+parallel into ``build/absdiff_variants/`` (``scripts/cuda_variants.py``) and
+bound with ctypes beside the package's own wrapper (``ops/absdiff_cuda.bind``).
+At each shape it times (torch.profiler over 20 calls, µs a call) every
+variant on the same input, the base first and again last, and ``x.sum()`` on
+the same tensor as a yardstick of what one read of these bytes takes on this
+card; it checks each variant against the plain version (float32 at rtol
+1e-5, half types within one unit in the last place of the float32 result
+cast) and prints each variant's registers and spills from ``-Xptxas -v``.
+Prints the card's name and power limit first.
 """
 from __future__ import annotations
 
 import argparse
-import concurrent.futures
-import subprocess
 import sys
-from pathlib import Path
 
 from bench_torch_median import device_us
-
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from cuda_variants import build_variants, card, ptxas_report
 
 SWEEP_ONE = """  for (long long u = u0 + threadIdx.x; u < u1; u += blockDim.x) {
     float prev[N];"""
@@ -80,31 +75,10 @@ SHAPES = [((1, 192, 3 * 1024 * 1024), "float32"), ((1, 1440, 3 * 256 * 256), "fl
           ((2, 40, 99999), "float32"), ((1, 192, 3 * 1024 * 1024), "bfloat16"), ((1, 1440, 3 * 256 * 256), "float16")]
 
 
-def build(name: str, subs) -> tuple[str, Path, str]:
-    from ssar_tpu_torch.ops import _build
-
-    src = (_build.CSRC / "absdiff.cu").read_text()
-    for old, new in subs:
-        if old not in src:
-            raise SystemExit(f"variant {name}: {old!r} not in absdiff.cu")
-        src = src.replace(old, new)
-    out_dir = ROOT / "build" / "absdiff_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    cu, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
-    cu.write_text(src)
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}", "-o", str(lib), str(cu)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"variant {name}: nvcc failed\n{proc.stderr[-3000:]}")
-    return name, lib, proc.stderr
-
-
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", nargs="*", help="variants to run besides base")
     args = parser.parse_args()
-    import ctypes
-
     import torch
 
     from ssar_tpu_torch.ops.absdiff import batch_absdiff_plain
@@ -112,17 +86,12 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("explore_torch_absdiff: needs a CUDA card")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip())
+    print(card())
     names = ["base"] + [n for n in (args.only or VARIANTS) if n != "base"]
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        built = list(pool.map(lambda n: build(n, VARIANTS[n]), names))
     fns = {}
-    for name, lib, ptxas in built:
-        fns[name] = bind(ctypes.CDLL(str(lib)))
-        regs = sorted({ln.split("Used ")[1].split(",")[0] for ln in ptxas.splitlines() if "Used " in ln})
-        spills = sorted({ln.strip() for ln in ptxas.splitlines() if "spill" in ln and " 0 bytes spill stores" not in ln})
-        print(f"[ptxas] {name}: {regs}; {spills or 'no spills'}")
+    for name, (lib, ptxas) in build_variants("absdiff.cu", VARIANTS, names).items():
+        fns[name] = bind(lib)
+        print(f"[ptxas] {name}: {ptxas_report(ptxas)}")
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream

@@ -3,8 +3,9 @@
 Counterpart of ``ssar_tpu/audio/spectral.py``.  Framing is a strided view
 (``Tensor.unfold``), never an element gather; window and filterbanks are
 host-built numpy constants applied as dense float32 products.  HPSS's two
-31-tap medians go through ``ops.median.median_filter`` (the CUDA kernel on
-the card).
+medians (31 taps by default, any odd width) go through
+``ops.median.median_filter`` (the CUDA kernels on the card: the templated
+ones up to 31 taps, the generic ones above).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from scipy.interpolate import CubicSpline
 
-from ..ops.median import median_filter
+from ..ops.median import PAD_MODES, median_filter, pad_indices
 from .convert import cq_to_chroma_matrix, hz_to_mel_np, mel_to_hz_np
 
 _TINY = float(np.finfo(np.float32).tiny)
@@ -46,18 +47,32 @@ def reflect_pad(y: torch.Tensor, left: int, right: int) -> torch.Tensor:
     return y.index_select(-1, idx)
 
 
-def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int, center: bool = True) -> torch.Tensor:
+def pad_signal(y: torch.Tensor, p: int, mode: str = "reflect") -> torch.Tensor:
+    """``np.pad`` of the last axis by p on both sides in ``mode`` (one of
+    ``ops.median.PAD_MODES``): "reflect" without repeating the edge sample,
+    "constant" with zeros, "edge", "symmetric" and "wrap" by their index maps."""
+    if mode == "reflect":
+        return reflect_pad(y, p, p)
+    if mode == "constant":
+        return F.pad(y, (p, p))
+    if mode not in PAD_MODES:
+        raise ValueError(f"pad_mode must be one of {PAD_MODES}, got {mode!r}")
+    return y.index_select(-1, pad_indices(y.shape[-1], p, mode, y.device))
+
+
+def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int, center: bool = True,
+                 pad_mode: str = "reflect") -> torch.Tensor:
     """(..., L) -> (..., n_frames, n_fft) strided frames; torch.stft center
-    semantics (reflect pad by n_fft // 2)."""
+    semantics (padded by n_fft // 2 on both sides in ``pad_mode``)."""
     if center:
-        y = reflect_pad(y, n_fft // 2, n_fft // 2)
+        y = pad_signal(y, n_fft // 2, pad_mode)
     return y.unfold(-1, n_fft, hop_length)
 
 
 def stft(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 1024, center: bool = True,
-         window: str | None = "hann") -> torch.Tensor:
+         window: str | None = "hann", pad_mode: str = "reflect") -> torch.Tensor:
     """Complex STFT of the last axis, (..., n_fft//2 + 1, n_frames) (torch.stft layout)."""
-    frames = frame_signal(y, n_fft, hop_length, center)
+    frames = frame_signal(y, n_fft, hop_length, center, pad_mode)
     if window is not None:
         frames = frames * _const(hann_window(n_fft), frames)
     return torch.fft.rfft(frames, dim=-1).transpose(-1, -2)
@@ -90,10 +105,10 @@ def istft(spec: torch.Tensor, n_fft: int = 2048, hop_length: int = 1024, center:
 
 
 def spectrogram(y: torch.Tensor, n_fft: int = 2048, hop_length: int = 1024, power: float = 1,
-                window: str | None = "hann", center: bool = True) -> torch.Tensor:
+                window: str | None = "hann", center: bool = True, pad_mode: str = "reflect") -> torch.Tensor:
     """|STFT|^power without the trailing frame: exactly L // hop frames, so one
     hop is one video frame."""
-    S = stft(y, n_fft=n_fft, hop_length=hop_length, center=center, window=window)[..., :-1]
+    S = stft(y, n_fft=n_fft, hop_length=hop_length, center=center, window=window, pad_mode=pad_mode)[..., :-1]
     return S.abs() ** power
 
 
@@ -116,8 +131,10 @@ def mel_basis(sr: int, n_fft: int, n_mels: int = 128, fmin: float = 0.0, fmax: f
 
 
 def melspectrogram(y: torch.Tensor, sr: int, n_fft: int = 2048, hop_length: int = 1024,
+                   window: str | None = "hann", center: bool = True, pad_mode: str = "reflect",
                    power: float = 2.0, fmax: float | None = None) -> torch.Tensor:
-    S = spectrogram(y, n_fft=n_fft, hop_length=hop_length, power=power)
+    S = spectrogram(y, n_fft=n_fft, hop_length=hop_length, power=power, window=window, center=center,
+                    pad_mode=pad_mode)
     return _const(mel_basis(sr, n_fft, fmax=fmax), S) @ S
 
 

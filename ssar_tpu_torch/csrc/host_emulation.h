@@ -13,6 +13,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 
@@ -27,11 +28,23 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr cudaError_t cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+template <typename Kernel> inline cudaError_t cudaFuncSetAttribute(Kernel, int, int) { return cudaSuccess; }
 
 struct EmulatedIndex { unsigned x, y, z; };
 inline thread_local EmulatedIndex threadIdx, blockIdx, blockDim;
 inline std::barrier<>* emulated_block_barrier = nullptr;
 inline void __syncthreads() { emulated_block_barrier->arrive_and_wait(); }
+// One barrier per warp: every lane of the warp must reach __syncwarp, as the
+// full mask asks on the card.  Blocks are whole warps.
+inline std::deque<std::barrier<>>* emulated_warp_barriers = nullptr;
+inline void __syncwarp(unsigned = 0xffffffffu) { (*emulated_warp_barriers)[threadIdx.x / 32].arrive_and_wait(); }
+
+// A launch's dynamic shared memory: one buffer, since blocks run one after
+// another, filled with 0xff bytes (NaN as a float) so that a value read
+// before it is written shows.
+inline std::vector<unsigned char> emulated_dynamic_shared;
+#define SSAR_DYNAMIC_SHARED(type, name) type* name = reinterpret_cast<type*>(emulated_dynamic_shared.data())
 
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __float_as_int(float f) { int i; std::memcpy(&i, &f, 4); return i; }
@@ -112,6 +125,9 @@ void emulate_launch(unsigned blocks, unsigned threads, Body body) {
   for (unsigned b = 0; b < blocks; ++b) {
     std::barrier<> barrier(threads);
     emulated_block_barrier = &barrier;
+    std::deque<std::barrier<>> warp_barriers;
+    for (unsigned w = 0; w < threads / 32; ++w) warp_barriers.emplace_back(32);
+    emulated_warp_barriers = &warp_barriers;
     std::vector<std::thread> pool;
     for (unsigned t = 0; t < threads; ++t)
       pool.emplace_back([=] { threadIdx = {t, 0, 0}; blockIdx = {b, 0, 0}; blockDim = {threads, 1, 1}; body(); });
@@ -121,3 +137,5 @@ void emulate_launch(unsigned blocks, unsigned threads, Body body) {
 
 #define SSAR_LAUNCH(kernel, blocks, threads, stream, ...) \
   emulate_launch(blocks, threads, [=] { kernel(__VA_ARGS__); })
+#define SSAR_LAUNCH_DYNAMIC(kernel, blocks, threads, bytes, stream, ...) \
+  (emulated_dynamic_shared.assign(bytes, 0xff), emulate_launch(blocks, threads, [=] { kernel(__VA_ARGS__); }))

@@ -1,6 +1,6 @@
 // Shared by sliding_median.cu and sliding_median_bwd.cu: the tile both
 // templated kernels work on, the reflect padding's index map, and the generic
-// kernels' work item.
+// kernels' tile walk and shared-memory budget.
 #pragma once
 
 namespace ssar_median {
@@ -104,21 +104,24 @@ __device__ __forceinline__ int reflect_index(int q, int L) {
   return r >= 0 && r < L ? r : reflect_index_far(q, L);
 }
 
-// The generic kernels' (odd K > 31) work item idx, one output or input a
-// thread: its line and its position on the line, ordered so that
-// neighbouring threads take neighbouring addresses: along a line when its
-// positions are contiguous, across the lines of a batch otherwise.
-template <bool CONTIG>
-__device__ __forceinline__ void generic_item(long long idx, int L, long long lines_per_batch, long long* line,
-                                             int* t) {
+// Dynamic shared memory a block of the generic kernels may take: the card's
+// 227 KB a block (232,448 bytes on sm_90) less a margin for the static arrays.
+constexpr int kMaxDynamicShared = 232448 - 1024;
+
+// Calls f(line, column) for the thread's share of a lines x ncols tile of the
+// generic kernels (odd K > 31: widths known at run time; lines = 2^lines_log2
+// <= kTileLines), a warp's lanes on neighbouring addresses of the contiguous
+// axis: along the columns of one line when positions are contiguous, along
+// the lines of a column otherwise.
+template <bool CONTIG, typename F>
+__device__ __forceinline__ void for_each_in_generic_tile(int lines, int lines_log2, int ncols, F f) {
   if (CONTIG) {
-    *line = idx / L;
-    *t = static_cast<int>(idx - *line * L);
+    for (int ln = threadIdx.x / 32; ln < lines; ln += kWarps)
+#pragma unroll 4
+      for (int c = threadIdx.x % 32; c < ncols; c += 32) f(ln, c);
   } else {
-    const long long per_batch = static_cast<long long>(L) * lines_per_batch;
-    const long long b = idx / per_batch, rem = idx - b * per_batch;
-    *t = static_cast<int>(rem / lines_per_batch);
-    *line = b * lines_per_batch + (rem - static_cast<long long>(*t) * lines_per_batch);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < lines * ncols; i += kThreads) f(i & (lines - 1), i >> lines_log2);
   }
 }
 

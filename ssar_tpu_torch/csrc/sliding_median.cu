@@ -74,6 +74,9 @@
 #else
 #include <cuda_runtime.h>
 #define SSAR_LAUNCH(kernel, blocks, threads, stream, ...) kernel<<<blocks, threads, 0, stream>>>(__VA_ARGS__)
+#define SSAR_LAUNCH_DYNAMIC(kernel, blocks, threads, bytes, stream, ...) \
+  kernel<<<blocks, threads, bytes, stream>>>(__VA_ARGS__)
+#define SSAR_DYNAMIC_SHARED(type, name) extern __shared__ type name[]
 #endif
 #include <stdint.h>
 
@@ -261,64 +264,216 @@ cudaError_t launch(const float* x, float* y, long long n_lines, int L, long long
 
 // ---- the generic path: odd K > 31, K a run-time argument ----------------------
 //
-// The Pallas kernel takes any odd K; no caller passes one above 31, so this
-// path is simple rather than fast: one thread an output, its window read
-// straight from device memory (through L1), and the median selected by
-// counting ranks: the tap v with fewer than H + 1 taps below it and more
-// than H at or below it (K^2 compares an output).  A window with a NaN gives
-// NaN, as on the templated path.
+// The same TPU kernel (ssar_tpu/ops/median_pallas.py:29, _median_kernel) for
+// every odd K the templated kernels do not instantiate.  K stays a run-time
+// argument (no instantiation per width, so the build does not grow).
+//
+// What bounds it: the bytes are the templated kernels' (8 an element, 0.00047
+// ms at (1025, 193)); the selection's instructions are what cost.  Ranking
+// each tap of each window against the others (the earlier generic design) is K^2 compare
+// steps an output, about 24,000 instructions at K = 63.  This design spends
+// about 750 at K = 63 (below): at (1025, 193), 64-wide tiles of 8 lines make
+// 264,000 outputs, 6.2 M warp instructions, 0.006 ms at one warp instruction
+// a clock on each of the 4 schedulers of 132 SMs at 1.98 GHz.
+//
+// Design: the templated kernels' shared core, with a warp's 32 lanes as the P
+// consecutive outputs.
+//   * Tile: 8 lines (2^kGenericLinesLog2) x kTilePos (64) positions a block,
+//     staged with a halo of K - 1 into dynamic shared memory along whichever
+//     axis is contiguous (reflection resolved on load, as the templated
+//     kernels do; a line shorter than the pad keeps reflecting).  Both layouts
+//     are filtered in place of their strides.
+//   * A warp takes a (line, run of kRun = 32 outputs); lane l's window is
+//     union positions l .. l + K - 1 of the run's K + 31.  All 32 windows
+//     share the core, positions 31 .. K - 1 (C = K - 31 values), and lane l
+//     has 31 extras of its own (positions l .. 30 and K .. K + l - 1).
+//   * The warp sorts the core once, as floats, with a bitonic network over
+//     the next power of two >= C in a shared-memory buffer of its own (padded
+//     with +inf up to rank H; 31 slots of -inf below it).  Each lane sorts its 31
+//     extras in registers with the templated kernels' compile-time Batcher
+//     network (one instantiation, for 31 wires).
+//   * Select: the rank-H value of the sorted core A and the sorted extras B
+//     (31 values) is min(A[H], min_t max(A[H - 31 + t], B[30 - t])), t < 31,
+//     with A = -inf below rank 0 and +inf from rank C on (the rank-selection
+//     identity for two sorted lists, as on the templated path): 31 max and 31
+//     min on 32 broadcast reads of the core.
+//   * Cost an output: 31 loads, ~370 min/max of the extras' network, 62 of
+//     the selection, and a lane's share of the core's sort (K = 63: 15 stages
+//     of 32 keys).  Shared memory carries the core and broadcasts only.
+//   * Exact: the result is one of the window's values, so it equals the plain
+//     version's bit for bit (min / max only move values).  NaN: min / max drop
+//     a NaN, so a tile that staged one tests each window for a NaN explicitly
+//     (K compares) and gives NaN there, as the templated kernels do; other
+//     tiles pay nothing.  A window without a NaN has none in its core or its
+//     extras.
+//   * Any odd K the card's 227 KB of shared memory a block allows: a tile has
+//     8 lines up to K = 2,975 (a 32-line tile would fit up to K = 1,159);
+//     above, fewer lines (and buffers), down to one line and two buffers of
+//     16,384 core values, K = 16,415.  Wider windows are refused
+//     (cudaErrorInvalidValue).  The tile's lines depend on K alone.
+//   * At most 64 registers a thread (4 blocks an SM): 79 without the bound on
+//     one layout, 3 blocks an SM, and (1025, 193)'s 516 blocks took two waves.
+// Tried and dropped (device us at (1025, 193), time / frequency axis, H100):
+// the earlier design, one thread an output ranking its taps from device memory, 211 / 235
+// at K = 33 and 744 / 836 at K = 63; a warp sorting the whole union of its 32
+// windows (K + 31 values as 64-bit value-position keys, bitonic in shared
+// memory) and each lane walking the sorted list to its window's H + 1-th key,
+// 17.7 / 17.7 and 34.5 / 34.6 (scripts/bench_torch_median.py): the sort's
+// 64-bit shared-memory traffic, 2-way bank conflicts on its short strides,
+// bound it; tiles of 2, 4 or 16 lines (scripts/explore_torch_median_generic.py):
+// 2 slower everywhere, 4 and 16 each faster on some rows and slower on others.
+
+constexpr int kRun = 32;              // consecutive outputs a warp selects for: its lanes
+constexpr int kGenericLinesLog2 = 3;  // a generic tile has at most 8 lines
+
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// ascending bitonic sort of v[0 .. n - 1] (n a power of two) by the 32 lanes of a warp; a NaN may
+// leave the rest unsorted (every window that shares it gives NaN)
+__device__ __forceinline__ void warp_sort(float* v, int n, int lane) {
+  for (int k = 2; k <= n; k <<= 1)
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = lane; i < n / 2; i += 32) {
+        const int lo = 2 * i - (i & (j - 1)), hi = lo + j;
+        const float a = v[lo], b = v[hi];
+        const bool up = (lo & k) == 0;
+        v[lo] = up ? fminf(a, b) : fmaxf(a, b);
+        v[hi] = up ? fmaxf(a, b) : fminf(a, b);
+      }
+      __syncwarp();
+    }
+}
 
 template <bool CONTIG>
-__global__ void __launch_bounds__(kThreads)
-sliding_median_generic_kernel(const float* __restrict__ x, float* __restrict__ y, int K, long long n_lines,
-                              int L, long long lines_per_batch, long long batch_stride, long long line_stride,
-                              long long pos_stride) {
-  const long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= n_lines * L) return;
-  long long line;
-  int t;
-  generic_item<CONTIG>(idx, L, lines_per_batch, &line, &t);
-  const long long base = line_offset(line, n_lines, lines_per_batch, batch_stride, line_stride);
-  const int H = K / 2;
-  auto tap = [&](int i) { return x[offset_on_line<CONTIG>(base, reflect_index(t - H + i, L), pos_stride)]; };
+__global__ void __launch_bounds__(kThreads, 4)
+sliding_median_generic_kernel(const float* __restrict__ x, float* __restrict__ y, int K, int lines_log2,
+                              long long n_lines, int L, long long lines_per_batch, long long batch_stride,
+                              long long line_stride, long long pos_stride, long long n_pos_tiles) {
+  SSAR_DYNAMIC_SHARED(float, shared_tile);
+  __shared__ long long line_base[kTileLines];
+  __shared__ int tile_has_nan;
+  const int lines = 1 << lines_log2, H = K / 2, C = K - (kRun - 1);
+  const int W = kTilePos + K - 1, XP = W | 1, YP = kTilePos | 1;
+  // the core's sort covers NC >= C values; a warp's buffer also holds 31 slots of -inf below it and +inf up to
+  // rank H, the highest the selection reads
+  const int NC = pow2_at_least(C), CP = (NC > H + 1 ? NC : H + 1) + kRun - 1;
+  const int n_items = lines * (kTilePos / kRun), n_sorters = n_items < kWarps ? n_items : kWarps;
+  float* xs = shared_tile + n_sorters * CP;
+  float* ys = xs + lines * XP;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
 
-  float m = __int_as_float(0x7fc00000);
-  bool nan = false;
-  for (int i = 0; i < K; ++i) nan |= tap(i) != tap(i);
-  if (!nan) {
-    for (int i = 0; i < K; ++i) {
-      const float v = tap(i);
-      int below = 0, at_or_below = 0;
-      for (int j = 0; j < K; ++j) {
-        const float w = tap(j);
-        below += w < v;
-        at_or_below += w <= v;
-      }
-      if (below <= H && at_or_below > H) {
-        m = v;
-        break;
-      }
+  const long long bid = blockIdx.x;
+  const long long line0 = (bid / n_pos_tiles) * lines;
+  const int pos0 = static_cast<int>(bid % n_pos_tiles) * kTilePos;
+  if (static_cast<int>(threadIdx.x) < lines)
+    line_base[threadIdx.x] = line_offset(line0 + threadIdx.x, n_lines, lines_per_batch, batch_stride, line_stride);
+  if (threadIdx.x == 0) tile_has_nan = 0;
+  __syncthreads();
+
+  // 1. stage the tile, halo included; only a tile at an end of the line reflects
+  const int q0 = pos0 - H;
+  const bool inside = q0 >= 0 && q0 + W <= L;
+  bool saw_nan = false;
+  for_each_in_generic_tile<CONTIG>(lines, lines_log2, W, [&](int ln, int c) {
+    const float v = x[offset_on_line<CONTIG>(line_base[ln], inside ? q0 + c : reflect_index(q0 + c, L), pos_stride)];
+    xs[ln * XP + c] = v;
+    saw_nan |= v != v;
+  });
+  if (saw_nan) tile_has_nan = 1;
+  __syncthreads();
+  const bool check_nan = tile_has_nan != 0;
+
+  // 2. per (line, run of 32 outputs): sort the shared core, then each lane merges its own extras
+  if (warp < n_sorters) {
+    float* core = shared_tile + warp * CP;   // core[kRun - 1 + r]: core rank r; -inf below, +inf past C
+    if (lane < kRun - 1) core[lane] = __int_as_float(0xff800000);   // -inf
+    for (int item = warp; item < n_items; item += kWarps) {
+      const int ln = item & (lines - 1), t0 = (item >> lines_log2) * kRun;
+      if (pos0 + t0 >= L) continue;            // a run past the line's end is not stored
+      const float* row = xs + ln * XP + t0;   // union position j is row[j]
+      for (int i = lane; i < CP - (kRun - 1); i += 32)
+        core[kRun - 1 + i] = i < C ? row[kRun - 1 + i] : __int_as_float(0x7f800000);
+      float extra[kRun - 1];
+#pragma unroll
+      for (int j = 0; j < kRun - 1; ++j) extra[j] = row[lane + j + (j < kRun - 1 - lane ? 0 : C)];
+      __syncwarp();
+      warp_sort(core + kRun - 1, NC, lane);
+      sort_values<kRun - 1>(extra);
+      const float* a = core + H;   // a[t]: core rank H - 31 + t
+      float m = a[kRun - 1];
+#pragma unroll
+      for (int t = 0; t < kRun - 1; ++t) m = fminf(m, fmaxf(a[t], extra[kRun - 2 - t]));
+      if (check_nan)
+        for (int j = 0; j < K; ++j)
+          if (row[lane + j] != row[lane + j]) m = __int_as_float(0x7fc00000);
+      ys[ln * YP + t0 + lane] = m;
+      __syncwarp();   // the next item's core overwrites this one
     }
   }
-  y[offset_on_line<CONTIG>(base, t, pos_stride)] = m;
+  __syncthreads();
+
+  // 3. store along the contiguous axis
+  for_each_in_generic_tile<CONTIG>(lines, lines_log2, kTilePos, [&](int ln, int t) {
+    if (line0 + ln < n_lines && pos0 + t < L)
+      y[offset_on_line<CONTIG>(line_base[ln], pos0 + t, pos_stride)] = ys[ln * YP + t];
+  });
+}
+
+// The generic tile for width K: the most lines (a power of two, at most
+// 2^kGenericLinesLog2) whose block fits the card's shared memory; false if
+// not even one line does.
+bool generic_tile(int K, int* lines_log2, int* bytes) {
+  const long long C = K - (kRun - 1);
+  long long nc = 1;
+  while (nc < C) nc <<= 1;
+  if (nc < K / 2 + 1) nc = K / 2 + 1;
+  for (int lg = kGenericLinesLog2; lg >= 0; --lg) {
+    const long long lines = 1LL << lg, items = lines * (kTilePos / kRun), sorters = items < kWarps ? items : kWarps;
+    const long long need = 4 * (sorters * (nc + kRun - 1) + lines * ((((kTilePos + K - 1)) | 1) + (kTilePos | 1)));
+    if (need <= kMaxDynamicShared) {
+      *lines_log2 = lg;
+      *bytes = static_cast<int>(need);
+      return true;
+    }
+  }
+  return false;
+}
+
+template <bool CONTIG>
+cudaError_t launch_generic_layout(const float* x, float* y, int k, int lines_log2, int bytes, long long n_lines,
+                                  int L, long long lines_per_batch, long long batch_stride, long long line_stride,
+                                  long long pos_stride, cudaStream_t stream) {
+  auto kernel = sliding_median_generic_kernel<CONTIG>;
+  // Above the default 48 KB a launch opts in on the current device (the attribute is per device), to the
+  // card's limit rather than these bytes, so that launches from other threads never lower it.
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kMaxDynamicShared);
+    if (err != cudaSuccess) return err;
+  }
+  const long long n_pos_tiles = (L + kTilePos - 1) / kTilePos;
+  const long long lines = 1LL << lines_log2;
+  const long long n_blocks = (n_lines + lines - 1) / lines * n_pos_tiles;
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  SSAR_LAUNCH_DYNAMIC(kernel, static_cast<unsigned>(n_blocks), kThreads, bytes, stream, x, y, k, lines_log2,
+                      n_lines, L, lines_per_batch, batch_stride, line_stride, pos_stride, n_pos_tiles);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_generic(const float* x, float* y, int k, long long n_lines, int L, long long lines_per_batch,
                            long long batch_stride, long long line_stride, long long pos_stride,
                            cudaStream_t stream) {
-  const long long n_blocks = (n_lines * L + kThreads - 1) / kThreads;
-  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const unsigned blocks = static_cast<unsigned>(n_blocks);
-  if (pos_stride == 1) {
-    auto kernel = sliding_median_generic_kernel<true>;
-    SSAR_LAUNCH(kernel, blocks, kThreads, stream, x, y, k, n_lines, L, lines_per_batch, batch_stride, line_stride,
-                pos_stride);
-  } else {
-    auto kernel = sliding_median_generic_kernel<false>;
-    SSAR_LAUNCH(kernel, blocks, kThreads, stream, x, y, k, n_lines, L, lines_per_batch, batch_stride, line_stride,
-                pos_stride);
-  }
-  return cudaGetLastError();
+  int lines_log2, bytes;
+  if (!generic_tile(k, &lines_log2, &bytes)) return cudaErrorInvalidValue;
+  if (pos_stride == 1)
+    return launch_generic_layout<true>(x, y, k, lines_log2, bytes, n_lines, L, lines_per_batch, batch_stride,
+                                       line_stride, pos_stride, stream);
+  return launch_generic_layout<false>(x, y, k, lines_log2, bytes, n_lines, L, lines_per_batch, batch_stride,
+                                      line_stride, pos_stride, stream);
 }
 
 }  // namespace
@@ -328,7 +483,8 @@ cudaError_t launch_generic(const float* x, float* y, int k, long long n_lines, i
 // and steps by pos_stride (all in elements); every L >= 1 is taken.  Launches
 // on `stream`, does not synchronise, and returns cudaGetLastError() after the
 // launch (cudaErrorInvalidValue for an even or negative window width or an
-// empty tensor).  Odd widths above 31 take the generic kernel.
+// empty tensor, or for an odd width too wide for a one-line tile, above
+// 16,415).  Odd widths above 31 take the generic kernel.
 extern "C" int ssar_sliding_median_f32(const float* x, float* y, int k, long long n_lines, int L,
                                        long long lines_per_batch, long long batch_stride,
                                        long long line_stride, long long pos_stride, void* stream) {

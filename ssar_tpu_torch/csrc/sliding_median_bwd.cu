@@ -62,6 +62,9 @@
 #else
 #include <cuda_runtime.h>
 #define SSAR_LAUNCH(kernel, blocks, threads, stream, ...) kernel<<<blocks, threads, 0, stream>>>(__VA_ARGS__)
+#define SSAR_LAUNCH_DYNAMIC(kernel, blocks, threads, bytes, stream, ...) \
+  kernel<<<blocks, threads, bytes, stream>>>(__VA_ARGS__)
+#define SSAR_DYNAMIC_SHARED(type, name) extern __shared__ type name[]
 #endif
 #include <stdint.h>
 
@@ -247,98 +250,205 @@ cudaError_t launch(const float* x, const float* out, const float* g, float* gx, 
 
 // ---- the generic path: odd K > 31, K a run-time argument ----------------------
 //
-// The forward's generic path has its gradient here, as simple: one thread an
-// input, reading device memory (through L1).  What lands on a padded position
-// q is found as landed_on above does, taps ascending, with each output's
-// selected tap searched again (K^2 compares an input); then the same fold of
-// the reflect halo in the same order, so it too agrees with the plain
-// version bit for bit.
+// The same VJP (ssar_tpu/ops/median_pallas.py:110, _sliding_median_bwd) for
+// every odd K the templated kernel does not instantiate, K a run-time argument
+// (no instantiation per width: this file's 32 already take most of the build).
+//
+// What bounds it: the bytes are the templated kernel's (16 an element, 0.00094
+// ms at (1025, 193)); the work is compares.  Searching each output's selected
+// tap again for each input that window can reach (the earlier generic design) is K^2
+// compares an input.  This design does steps 1-5 of the templated kernel
+// above with K at run time: the search takes K compares and selects for each
+// of the 64 + K - 1 outputs a tile stages, the gather K compares and adds an
+// input, about 4K(64 + K - 1)/64 + 5K instructions an input: 820 at K = 63,
+// 0.26 G lane instructions at (1025, 193) in tiles of 8 lines, 0.008 ms at one
+// warp instruction a clock on each scheduler.
+//   1. Stage x with a halo of 2(K/2), out and g with a halo of K/2, into
+//      dynamic shared memory along the contiguous axis (an output outside the
+//      line staged as NaN: it selects nothing).
+//   2. Search: each staged output on the line takes the first of its K staged
+//      taps equal to out[t], as a chain of selects from the last tap down (no
+//      divergence within it), and stores the padded column it lands on (-1:
+//      none; an output off the line is not searched).
+//   3. Gather: each input adds the cotangents of the K outputs that can reach
+//      it whose target is its column, taps ascending, as predicated adds.
+//   4. Fold the reflect halo as the templated kernel does, in the same order,
+//      visiting only the outputs on the line that reach each halo position.
+//      On a line shorter than the pad the search and the fold scale with L,
+//      not K (a first form that searched every staged output and walked K taps
+//      for each mirror image kept tests/test_torch_cuda.py's k = 8161 case on
+//      9000 lines of 2 running for minutes).
+//   5. Results go back through shared memory and are stored along the
+//      contiguous axis.
+// A gather: no atomics, the plain version's order of adds, so it equals
+// sliding_median_bwd_plain bit for bit and two launches give the same bits.
+// A tile has 8 lines while it fits the card's 227 KB of shared memory a block,
+// up to K = 1,759 (a 32-line tile would fit up to K = 403); above, it takes
+// fewer lines, one line up to K = 14,415 (wider: cudaErrorInvalidValue).  The
+// tile's lines depend on K alone.
+// Tried and dropped: the earlier design, one thread an input, searching each reaching
+// output's tap again from device memory: 0.303 / 1.04 ms at K = 33 / 63.
 
-template <bool CONTIG>
-struct GenericLine {
-  const float *x, *out, *g;
-  long long base, pos_stride;
-  int K, L;
+constexpr int kGenericLinesLog2 = 3;  // a generic tile has at most 8 lines
 
-  __device__ __forceinline__ long long at(int t) const { return offset_on_line<CONTIG>(base, t, pos_stride); }
-
-  // the first tap of output t's window equal to out[t], K if none
-  __device__ __forceinline__ int selected(int t) const {
-    const float m = out[at(t)];
-    for (int i = 0; i < K; ++i)
-      if (x[at(reflect_index(t - K / 2 + i, L))] == m) return i;
-    return K;
+// landed_on and fold_side above with the width at run time.  Only outputs on
+// the line select a tap, so landed_on_generic visits those alone, taps
+// ascending (outputs descending): at most L of them, where K may be far wider.
+__device__ __forceinline__ float landed_on_generic(int K, int q, const float* ts, const float* gs, int pos0, int L,
+                                                   int width) {
+  const int p = K / 2;
+  float h = 0.f;
+  for (int t = q < L - 1 ? q : L - 1; t >= 0 && t > q - K; --t) {
+    const int u = t - pos0 + p;
+    if (u >= 0 && u < width && __float_as_int(ts[u]) == q - pos0 + p) h += gs[u];
   }
+  return h;
+}
 
-  // what landed on the padded position q (0 .. L + 2p - 1), taps ascending
-  __device__ __forceinline__ float landed_on(int q) const {
-    float h = 0.f;
-    for (int i = 0; i < K; ++i) {
-      const int t = q - i;
-      if (t < 0) break;
-      if (t < L && selected(t) == i) h += g[at(t)];
-    }
-    return h;
-  }
-
-  // fold_side above, for this line
-  __device__ __forceinline__ float fold_side(float acc, int e, int first, int step) const {
-    const int p = K / 2;
-    if (L == 1) {
-      for (int d = 1; d <= p; ++d) acc += landed_on(first + step * (d - 1));
-      return acc;
-    }
-    const int m = 2 * (L - 1);
-    for (int base_d = 0;; base_d += m) {
-      const int d1 = base_d + e;
-      if (d1 > p) break;
-      if (e != 0) acc += landed_on(first + step * (d1 - 1));
-      const int d2 = base_d + m - e;
-      if (d2 > p) break;
-      if (2 * e != m) acc += landed_on(first + step * (d2 - 1));
-    }
+__device__ __forceinline__ float fold_side_generic(int K, float acc, int e, int first, int step, const float* ts,
+                                                   const float* gs, int pos0, int L, int width) {
+  const int p = K / 2;
+  if (L == 1) {
+    for (int d = 1; d <= p; ++d) acc += landed_on_generic(K, first + step * (d - 1), ts, gs, pos0, L, width);
     return acc;
   }
-};
+  const int m = 2 * (L - 1);
+  for (int base = 0;; base += m) {
+    const int d1 = base + e;
+    if (d1 > p) break;
+    if (e != 0) acc += landed_on_generic(K, first + step * (d1 - 1), ts, gs, pos0, L, width);
+    const int d2 = base + m - e;
+    if (d2 > p) break;
+    if (2 * e != m) acc += landed_on_generic(K, first + step * (d2 - 1), ts, gs, pos0, L, width);
+  }
+  return acc;
+}
 
 template <bool CONTIG>
 __global__ void __launch_bounds__(kThreads)
 sliding_median_bwd_generic_kernel(const float* __restrict__ x, const float* __restrict__ out,
-                                  const float* __restrict__ g, float* __restrict__ gx, int K, long long n_lines,
-                                  int L, long long lines_per_batch, long long batch_stride, long long line_stride,
-                                  long long pos_stride) {
-  const long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= n_lines * L) return;
-  long long line;
-  int j;
-  generic_item<CONTIG>(idx, L, lines_per_batch, &line, &j);
-  const GenericLine<CONTIG> ln{x, out, g, line_offset(line, n_lines, lines_per_batch, batch_stride, line_stride),
-                               pos_stride, K, L};
-  const int p = K / 2;
-  float acc = ln.landed_on(j + p);
-  if (j <= p || L - 1 - j <= p) {
-    acc = ln.fold_side(acc, j, p - 1, -1);
-    acc = ln.fold_side(acc, L - 1 - j, p + L, +1);
+                                  const float* __restrict__ g, float* __restrict__ gx, int K, int lines_log2,
+                                  long long n_lines, int L, long long lines_per_batch, long long batch_stride,
+                                  long long line_stride, long long pos_stride, long long n_pos_tiles) {
+  SSAR_DYNAMIC_SHARED(float, shared_tile);
+  __shared__ long long line_base[kTileLines];
+  const int lines = 1 << lines_log2, p = K / 2;
+  const int OW = kTilePos + 2 * p;    // outputs pos0 - p .. pos0 + kTilePos - 1 + p
+  const int XW = OW + K - 1;          // positions pos0 - 2p ..: every staged output's window
+  const int OP = OW | 1, XP = XW | 1;
+  float* xs = shared_tile;            // x, later the results
+  float* ts = xs + lines * XP;        // out, later the targets
+  float* gs = ts + lines * OP;
+
+  const long long bid = blockIdx.x;
+  const long long line0 = (bid / n_pos_tiles) * lines;
+  const int pos0 = static_cast<int>(bid % n_pos_tiles) * kTilePos;
+  if (static_cast<int>(threadIdx.x) < lines)
+    line_base[threadIdx.x] = line_offset(line0 + threadIdx.x, n_lines, lines_per_batch, batch_stride, line_stride);
+  __syncthreads();
+
+  // 1. stage; only a tile at an end of the line reflects or meets outputs outside the line
+  const int x0 = pos0 - 2 * p, t0 = pos0 - p;
+  const bool inside = x0 >= 0 && x0 + XW <= L;
+  for_each_in_generic_tile<CONTIG>(lines, lines_log2, XW, [&](int ln, int c) {
+    xs[ln * XP + c] = x[offset_on_line<CONTIG>(line_base[ln], inside ? x0 + c : reflect_index(x0 + c, L), pos_stride)];
+  });
+  for_each_in_generic_tile<CONTIG>(lines, lines_log2, OW, [&](int ln, int u) {
+    const int t = t0 + u;
+    const bool on_line = inside || (t >= 0 && t < L);
+    const long long at = offset_on_line<CONTIG>(line_base[ln], on_line ? t : 0, pos_stride);
+    const float o = out[at];
+    ts[ln * OP + u] = on_line ? o : __int_as_float(0x7fc00000);
+    gs[ln * OP + u] = g[at];
+  });
+  __syncthreads();
+
+  // 2. search: output u's window is x-tile columns u .. u + K - 1; an output off the line selects nothing
+  for (int item = threadIdx.x; item < lines * OW; item += kThreads) {
+    const int ln = item & (lines - 1), u = item >> lines_log2;
+    const float* xrow = xs + ln * XP + u;
+    const float m = ts[ln * OP + u];
+    int sel = -1;
+    if (t0 + u >= 0 && t0 + u < L) {
+#pragma unroll 4
+      for (int i = K - 1; i >= 0; --i) sel = xrow[i] == m ? u + i : sel;
+    }
+    ts[ln * OP + u] = __int_as_float(sel);
   }
-  gx[ln.at(j)] = acc;
+  __syncthreads();
+
+  // 3. gather and 4. fold
+  for (int item = threadIdx.x; item < lines * kTilePos; item += kThreads) {
+    const int ln = item & (lines - 1), j = item >> lines_log2;   // input j, relative to pos0
+    const float* trow = ts + ln * OP;
+    const float* grow = gs + ln * OP;
+    const int col = j + 2 * p;   // its padded column; tap i comes from output column col - i
+    const int jl = pos0 + j;
+    if (jl >= L) continue;       // past the line's end: not stored
+    float acc = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < K; ++i)
+      if (__float_as_int(trow[col - i]) == col) acc += grow[col - i];
+    if (jl <= p || L - 1 - jl <= p) {
+      acc = fold_side_generic(K, acc, jl, p - 1, -1, trow, grow, pos0, L, OW);
+      acc = fold_side_generic(K, acc, L - 1 - jl, p + L, +1, trow, grow, pos0, L, OW);
+    }
+    xs[ln * XP + j] = acc;
+  }
+  __syncthreads();
+
+  // 5. store along the contiguous axis
+  for_each_in_generic_tile<CONTIG>(lines, lines_log2, kTilePos, [&](int ln, int t) {
+    if (line0 + ln < n_lines && pos0 + t < L)
+      gx[offset_on_line<CONTIG>(line_base[ln], pos0 + t, pos_stride)] = xs[ln * XP + t];
+  });
+}
+
+// The generic tile for width K: the most lines (a power of two, at most
+// 2^kGenericLinesLog2) whose block fits the card's shared memory.
+bool generic_tile(int K, int* lines_log2, int* bytes) {
+  const long long per_line = 4LL * ((((kTilePos + 2 * (K / 2)) + K - 1) | 1) + 2 * ((kTilePos + 2 * (K / 2)) | 1));
+  for (int lg = kGenericLinesLog2; lg >= 0; --lg)
+    if ((per_line << lg) <= kMaxDynamicShared) {
+      *lines_log2 = lg;
+      *bytes = static_cast<int>(per_line << lg);
+      return true;
+    }
+  return false;
+}
+
+template <bool CONTIG>
+cudaError_t launch_generic_layout(const float* x, const float* out, const float* g, float* gx, int k,
+                                  int lines_log2, int bytes, long long n_lines, int L, long long lines_per_batch,
+                                  long long batch_stride, long long line_stride, long long pos_stride,
+                                  cudaStream_t stream) {
+  auto kernel = sliding_median_bwd_generic_kernel<CONTIG>;
+  // Above the default 48 KB a launch opts in on the current device (the attribute is per device), to the
+  // card's limit rather than these bytes, so that launches from other threads never lower it.
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 kMaxDynamicShared);
+    if (err != cudaSuccess) return err;
+  }
+  const long long n_pos_tiles = (L + kTilePos - 1) / kTilePos;
+  const long long lines = 1LL << lines_log2;
+  const long long n_blocks = (n_lines + lines - 1) / lines * n_pos_tiles;
+  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  SSAR_LAUNCH_DYNAMIC(kernel, static_cast<unsigned>(n_blocks), kThreads, bytes, stream, x, out, g, gx, k,
+                      lines_log2, n_lines, L, lines_per_batch, batch_stride, line_stride, pos_stride, n_pos_tiles);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_generic(const float* x, const float* out, const float* g, float* gx, int k, long long n_lines,
                            int L, long long lines_per_batch, long long batch_stride, long long line_stride,
                            long long pos_stride, cudaStream_t stream) {
-  const long long n_blocks = (n_lines * L + kThreads - 1) / kThreads;
-  if (n_blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  const unsigned blocks = static_cast<unsigned>(n_blocks);
-  if (pos_stride == 1) {
-    auto kernel = sliding_median_bwd_generic_kernel<true>;
-    SSAR_LAUNCH(kernel, blocks, kThreads, stream, x, out, g, gx, k, n_lines, L, lines_per_batch, batch_stride,
-                line_stride, pos_stride);
-  } else {
-    auto kernel = sliding_median_bwd_generic_kernel<false>;
-    SSAR_LAUNCH(kernel, blocks, kThreads, stream, x, out, g, gx, k, n_lines, L, lines_per_batch, batch_stride,
-                line_stride, pos_stride);
-  }
-  return cudaGetLastError();
+  int lines_log2, bytes;
+  if (!generic_tile(k, &lines_log2, &bytes)) return cudaErrorInvalidValue;
+  if (pos_stride == 1)
+    return launch_generic_layout<true>(x, out, g, gx, k, lines_log2, bytes, n_lines, L, lines_per_batch,
+                                       batch_stride, line_stride, pos_stride, stream);
+  return launch_generic_layout<false>(x, out, g, gx, k, lines_log2, bytes, n_lines, L, lines_per_batch,
+                                      batch_stride, line_stride, pos_stride, stream);
 }
 
 }  // namespace
@@ -348,8 +458,9 @@ cudaError_t launch_generic(const float* x, const float* out, const float* g, flo
 // (r % lines_per_batch) * line_stride and steps by pos_stride (in elements);
 // every L >= 1 is taken.  Launches on `stream`, does not synchronise, and
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// even or negative window width or an empty tensor).  Odd widths above 31
-// take the generic kernel.
+// even or negative window width or an empty tensor, or for an odd width too
+// wide for a one-line tile, above 14,415).  Odd widths above 31 take the
+// generic kernel.
 extern "C" int ssar_sliding_median_bwd_f32(const float* x, const float* out, const float* g, float* gx,
                                            int k, long long n_lines, int L, long long lines_per_batch,
                                            long long batch_stride, long long line_stride,

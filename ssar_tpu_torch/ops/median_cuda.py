@@ -6,8 +6,10 @@ Replace the TPU kernel ``ssar_tpu/ops/median_pallas.py``
 (``_sliding_median_bwd``).  Each wrapper checks device, dtype and shape,
 allocates the output, launches on PyTorch's current stream and raises if the
 launch is refused.  Widths up to ``MAX_K`` run the sources' templated
-kernels; a wider odd width runs their generic kernels (k a run-time argument,
-one thread an output or an input: the Pallas kernel takes any odd k).
+kernels; a wider odd width runs their generic kernels (k a run-time argument:
+the Pallas kernel takes any odd k), up to k = 16,415 forward and 14,415
+backward, where a one-line tile still fits the card's shared memory; a wider
+window's launch is refused and raises.
 ``launches`` and ``bwd_launches`` count the templated kernels' launches made
 through them, ``generic_launches`` and ``generic_bwd_launches`` the generic
 ones'.

@@ -86,6 +86,27 @@ def test_stft_hpss_istft():
     _close(t_spec.istft(H_t, length=len(audio)), j_spec.istft(H_j, length=len(audio)))
 
 
+@pytest.mark.parametrize("pad_mode", ["constant", "edge"])
+def test_spectral_front_end_pad_modes_match_jax(pad_mode):
+    """``pad_mode`` of ``frame_signal``, ``stft``, ``spectrogram`` and
+    ``melspectrogram`` (with ``window`` and ``center``) against the JAX
+    package's: the frames exactly (a pad and a copy), the rest at rtol 1e-4
+    of their scale; the default stays reflect."""
+    audio = _track(SR, 0.5)
+    y_j, y_t = jnp.asarray(audio), torch.as_tensor(audio)
+    np.testing.assert_array_equal(t_spec.frame_signal(y_t, 2048, 1024, pad_mode=pad_mode).numpy(),
+                                  np.asarray(j_spec.frame_signal(y_j, 2048, 1024, pad_mode=pad_mode)))
+    _close(t_spec.stft(y_t, pad_mode=pad_mode).abs(), jnp.abs(j_spec.stft(y_j, pad_mode=pad_mode)))
+    _close(t_spec.spectrogram(y_t, n_fft=1024, hop_length=256, power=2.0, pad_mode=pad_mode),
+           j_spec.spectrogram(y_j, n_fft=1024, hop_length=256, power=2.0, pad_mode=pad_mode))
+    for window, center in ((None, True), ("hann", False)):
+        _close(t_spec.melspectrogram(y_t, SR, window=window, center=center, pad_mode=pad_mode),
+               j_spec.melspectrogram(y_j, SR, window=window, center=center, pad_mode=pad_mode))
+    assert not torch.equal(t_spec.stft(y_t, pad_mode=pad_mode), t_spec.stft(y_t))
+    np.testing.assert_array_equal(t_spec.frame_signal(y_t, 2048, 1024).numpy(),
+                                  np.asarray(j_spec.frame_signal(y_j, 2048, 1024)))
+
+
 def test_cens_device_tuned():
     """The recursive CQT on the half-bin grid, interpolated at a device tuning."""
     audio = _track(SR, 2.0)

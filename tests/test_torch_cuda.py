@@ -178,10 +178,14 @@ def test_median_cuda_other_axis_and_errors(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ties", [False, True])
-@pytest.mark.parametrize("shape,k", [((67, 131), 33), ((40, 100), 63), ((2, 30, 50), 33), ((5, 9), 33)])
+@pytest.mark.parametrize("shape,k", [((67, 131), 33), ((40, 100), 63), ((2, 30, 50), 33), ((5, 9), 33),
+                                     ((1025, 193), 127), ((200, 90), 255), ((40, 600), 545), ((6, 4200), 4097),
+                                     ((2, 9000), 8161), ((2, 13000), 12001)])
 def test_median_cuda_generic_width(cuda_device, shape, k, ties):
     """The generic kernels (odd k > 31) on both axes and in both directions,
-    bit for bit, counted apart from the templated kernels."""
+    bit for bit, counted apart from the templated kernels: forward tiles of
+    8 lines within 48 KB of shared memory (k = 33 to 255) and above it (545),
+    of 4 lines (4097), 2 lines (8161) and one line (12001)."""
     from ssar_tpu_torch.ops import median_cuda
 
     gen = torch.Generator().manual_seed(k)
@@ -192,6 +196,23 @@ def test_median_cuda_generic_width(cuda_device, shape, k, ties):
     _check_both_directions(x.to(cuda_device), torch.randn(shape, generator=gen).to(cuda_device), k)
     after = (median_cuda.launches, median_cuda.generic_launches, median_cuda.generic_bwd_launches)
     assert after[0] == before[0] and after[1] > before[1] and after[2] > before[2]
+
+
+@pytest.mark.cuda
+def test_median_cuda_generic_refuses_wider_than_its_tile(cuda_device):
+    """A window wider than a one-line tile fits the card's shared memory
+    raises; it never falls back to the plain version."""
+    from ssar_tpu_torch.ops import median_cuda
+
+    x = torch.rand(2, 40, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        median_cuda.sliding_median_cuda(x, 16417, 1)
+    with pytest.raises(RuntimeError):
+        median_cuda.sliding_median_bwd_cuda(x, x, x, 14417, 1)
+    out = median_cuda.sliding_median_cuda(x, 16415, 1)
+    assert torch.equal(out, median_filter_plain(x, 16415, 1))
+    median_cuda.sliding_median_bwd_cuda(x, out, x, 14415, 1)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

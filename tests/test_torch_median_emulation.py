@@ -126,8 +126,13 @@ def test_emulated_forward_every_width(forward, backward, k):
     assert torch.equal(_run_forward(forward, xt, k, -2), want.t())
 
 
-# the generic path (k > 31): lines long and short, both layouts, a batch
-GENERIC = [((5, 70), 33), ((3, 40), 63), ((2, 4, 37), 33), ((6, 20), 63), ((1, 1), 33)]
+# the generic path (k > 31): lines long and short, both layouts, batches.  Every case runs both axes, so
+# (40, 7) at k = 127, (9, 30) at k = 255 and (2, 3, 4, 9) at k = 63 have lines shorter than k // 2 on each; at
+# k = 545 the forward's tile (8 lines, 8 core buffers of 1,024 values) takes 55,328 bytes of shared memory and
+# the backward's 75,872, above the 48 KB a launch gets without opting in.  Few tiles a case: the host runs a
+# block as 256 threads.
+GENERIC = [((5, 70), 33), ((3, 40), 63), ((2, 4, 37), 33), ((6, 20), 63), ((1, 1), 33),
+           ((40, 7), 127), ((9, 30), 255), ((5, 40), 545), ((2, 3, 4, 9), 63)]
 
 
 @pytest.mark.parametrize("kind", ["distinct", "ties", "nan"])

@@ -26,7 +26,7 @@ t_dct = importlib.import_module("ssar_tpu_torch.ops.dct")
 t_q = importlib.import_module("ssar_tpu_torch.ops.quantile")
 t_rs = importlib.import_module("ssar_tpu_torch.ops.resample")
 from ssar_tpu.ops.median import median_filter as j_median
-from ssar_tpu.ops.median_pallas import sliding_median_lastaxis
+from ssar_tpu.ops.median_pallas import _sliding_median_bwd, sliding_median_lastaxis
 from ssar_tpu_torch.audio.spectral import reflect_pad
 from ssar_tpu_torch.ops import gaussian as t_gauss
 from ssar_tpu_torch.ops import iir as t_iir
@@ -50,7 +50,7 @@ def test_median_plain_matches_jax(rng, shape, k, axis):
     np.testing.assert_array_equal(got.numpy(), np.asarray(j_median(jnp.asarray(x), k, axis)))
 
 
-@pytest.mark.parametrize("k", [7, 31])
+@pytest.mark.parametrize("k", [7, 31, 33])
 def test_median_matches_pallas_kernel_interpret(rng, k):
     x = rng.rand(2, 16, 48).astype(np.float32)
     got = median_filter(torch.as_tensor(x), k, -1).numpy()
@@ -72,17 +72,25 @@ def _median_case(rng, shape, kind):
 
 
 @pytest.mark.parametrize("kind", ["distinct", "ties", "nan"])
-@pytest.mark.parametrize("k,shape", [(3, (4, 24)), (7, (6, 40)), (9, (5, 9)), (31, (3, 33)), (31, (2, 16))])
+@pytest.mark.parametrize("k,shape", [(3, (4, 24)), (7, (6, 40)), (9, (5, 9)), (31, (3, 33)), (31, (2, 16)),
+                                     (33, (3, 40)), (63, (3, 70))])
 def test_median_backward_plain_matches_pallas_vjp(rng, k, shape, kind):
     """The port's first-equal-tap rule against ``jax.vjp`` of the Pallas
     kernel in interpret mode, through ``median_filter`` along both axes.  A
     window holding a NaN gives NaN in both (NaNs in the same places); no tap
     equals it, and that case compares the gradient away from the NaN's
-    windows."""
+    windows.  At k = 63 the Pallas forward's 1,953-comparator network takes
+    seconds a call in interpret mode, so its VJP rule is applied to the JAX
+    package's ``median_filter`` off the TPU (``jnp.median`` of the windows:
+    the same values, exactly)."""
     x = _median_case(rng, shape, kind)
     g = rng.randn(*shape).astype(np.float32)
-    out_j, vjp = jax.vjp(lambda a: sliding_median_lastaxis(a, k), jnp.asarray(x))
-    (want,) = vjp(jnp.asarray(g))
+    if k > 33:
+        out_j = j_median(jnp.asarray(x), k, 1)
+        (want,) = _sliding_median_bwd(k, 256, 256, (jnp.asarray(x), out_j), jnp.asarray(g))
+    else:
+        out_j, vjp = jax.vjp(lambda a: sliding_median_lastaxis(a, k), jnp.asarray(x))
+        (want,) = vjp(jnp.asarray(g))
     want = np.asarray(want)
     for axis, arr, cot in ((1, x, g), (0, x.T.copy(), g.T.copy())):
         xt = torch.as_tensor(arr).requires_grad_()
@@ -255,6 +263,26 @@ def test_median_wide_windows_match_jax(rng, k):
         xt = torch.as_tensor(x).requires_grad_()
         (median_filter(xt, k, axis) * torch.as_tensor(w)).sum().backward()
         np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_hpss_wide_window_matches_jax(rng):
+    """``hpss`` at ks = 63 (above the templated widths: the generic kernels on
+    the card) against the JAX package's on seeded magnitudes whose lines are
+    longer than the pad of 31 on both axes, then shorter on the frequency axis
+    (20 bins) and on the time axis (25 frames), where the reflect runs as a
+    triangle wave.  The medians are exact on both sides (a selection); the
+    soft masks divide and square in float32 in another order: rtol 1e-6 of
+    the largest value."""
+    j_spec = importlib.import_module("ssar_tpu.audio.spectral")
+    from ssar_tpu_torch.audio.spectral import hpss
+
+    for shape in ((70, 80), (20, 80), (70, 25)):
+        S = (rng.rand(*shape) ** 3).astype(np.float32)
+        S[:, shape[1] // 2] = 0.0   # a silent frame: split_zeros' 0.5 where both medians vanish
+        for g_, w_ in zip(hpss(torch.as_tensor(S), ks=63), j_spec.hpss(jnp.asarray(S), ks=63)):
+            _close(g_, w_, 1e-6)
+    np.testing.assert_array_equal(median_filter(torch.as_tensor(S), 63, 1).numpy(),
+                                  np.asarray(j_median(jnp.asarray(S), 63, 1)))
 
 
 @pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
