@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serve, train, test-time-optimization, random-patch and evaluation paths, the other
 model families and their trainers, checkpoint evaluation, the paper's comparison, the extractors and pSp, the
-example patches and the multi-rank paths (at world size 1 on the card, 4 gloo ranks on the host), once on one
-CUDA card and check them.
+example patches, the multi-rank paths (at world size 1 on the card, 4 gloo ranks on the host) and the paper's
+pipeline entry points, once on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -222,7 +222,22 @@ Phases (any failure exits non-zero and prints no result line):
      steps (exit 0, finite losses);
   27. dryrun_multichip(4) at the config of record on a (2, 2) mesh of gloo
      ranks on the host: the sharded trajectory within rtol 5e-4 of one
-     device's and falling, and the 256 px TP synthesis.
+     device's and falling, and the 256 px TP synthesis;
+  28. the paper's pipeline through the port's entry points, under
+     build/chip_smoke_runs/pipeline/: the record corpus
+     (scripts.make_record_dataset, 3 tracks of 48 s, cut from 8; B1 36), the
+     record grid (experiments.run_grid at full width, 256 examples a cell,
+     cut from 128,000: evals, FCD, checkpoints, renders; B1 24, B2 60 with
+     one validation batch), scripts/collect_grid.py, the calibration G
+     (scripts.train_calibration_g at its defaults, 10 steps, cut from 3,000;
+     its npz read back), the absolute OOD (scripts.ood_absolute on
+     docs/study's checkpoints, n = 64, cut from 256), the study
+     (scripts.run_study's 8 predictors on 1 clip of 16 s, cut from 6, the
+     comparison optimizer at 128 steps; B1 224, B2 12) and
+     scripts/collect_study.py (the collectors over a drawing-free matplotlib
+     stand-in where matplotlib is not installed); launches exact; then
+     make_targets card vs CPU at 4 s with a 64 px palette (the CPU's music
+     information and noise banks on both) within EXAMPLE_REF_RTOL.
 It prints one JSON line describing the kernels, then the nvidia-smi line,
 then {"ok": true, "device": {...}} as the last line.
 """
@@ -707,6 +722,10 @@ def main():
     parallel_counts = parallel_path(dev, synthesizer, config, latents, noise, sink.crcs, train_log_dir)
     multichip_host()
 
+    # --------------------------------------------------------------- 28 --
+    pipeline_counts = pipeline_path(dev)
+    reference_pipeline(dev)
+
     main_row = [r for r in rows if r["shape"] == [1025, 193]]  # both axes: one HPSS
     # absdiff: the five launches of one ssabsdiff loss (latents and the four noise maps, batch 32)
     ad_path = [r for r in absdiff_rows if r["path"]]
@@ -726,6 +745,7 @@ def main():
         "launches_evaluate": eval_counts["sliding_median"], "launches_checkpoint": checkpoint_counts["sliding_median"],
         "launches_study": study_counts["sliding_median"], "launches_extractors": extractor_counts["sliding_median"],
         "launches_examples": example_counts["sliding_median"], "launches_parallel": parallel_counts["sliding_median"],
+        "launches_pipeline": pipeline_counts["sliding_median"],
     }, {
         "name": "sliding_median_generic", "route": "cuda", "source": "ssar_tpu_torch/csrc/sliding_median.cu",
         "replaces": "ssar_tpu/ops/median_pallas.py:29", "launches": wide_counts["sliding_median_generic"],
@@ -752,6 +772,7 @@ def main():
         "launches_evaluate": eval_counts["absdiff"], "launches_backbones": backbone_counts["absdiff"],
         "launches_checkpoint": checkpoint_counts["absdiff"], "launches_study": study_counts["absdiff"],
         "launches_extractors": extractor_counts["absdiff"], "launches_parallel": parallel_counts["absdiff"],
+        "launches_pipeline": pipeline_counts["absdiff"],
     }, {
         "name": "s4d_vandermonde", "route": "cuda", "source": "ssar_tpu_torch/csrc/s4d_vandermonde.cu",
         "replaces": "ssar_tpu/ops/vandermonde.py:32", "launches": train_counts["s4d_vandermonde"],
@@ -4092,6 +4113,260 @@ def multichip_host():
         f"{dry['tp_synth']}; the ranks {dry['seconds']['sharded']:.1f} s (start included; rank 0's steps "
         f"{dry['seconds']['rank0_steps']:.1f} s, its synthesis {dry['seconds']['rank0_synthesis']:.1f} s), the "
         f"one-device run in a thread beside them; phase 27 took {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------- 28 --
+# the paper's pipeline through the port's own entry points, each cut from the scripts' defaults:
+PIPELINE_TRACKS, PIPELINE_SECONDS = 3, 48   # the record corpus: 3 tracks of 48 s, cut from 8
+PIPELINE_EXAMPLES, PIPELINE_BATCH = 256, 32   # each record cell: 256 examples (8 steps), cut from 128,000
+PIPELINE_CALIBRATION_STEPS = 10   # the calibration G: 10 steps, cut from 3,000
+PIPELINE_OOD_N = 64   # the absolute OOD: n = 64, cut from 256
+PIPELINE_STUDY_CLIPS = 1   # the study: 1 clip of 16 s, cut from 6; its optimizer at STUDY_SSOPT_STEPS
+# B1 / B2 launches, derived from the code: a corpus track takes its music information (PATCH_B1) and, in the cache,
+# its audio2features (4); a record cell renders its checkpoint twice (at example 0 and at the end), each render's
+# audio2features 4; the ssabsdiff cell takes 5 absdiff a step and 5 an eval batch; the study scores each record
+# with SCORE_B1 / SCORE_B2, its predictors take PREDICT_B1 (the random patch's music information once a clip), and
+# the calibration's recipes RECIPE_B1
+STUDY_MODELS_B1 = {"random_patch": PATCH_B1, "lucid_baseline": 4, "lucid_low_amp": 4, "ssopt": 6, "ssopt_amp": 6,
+                   "gru_supervised": 4, "gru_selfsupervised": 4, "gru_ssabsdiff": 4}
+MPL_STANDIN = {
+    "__init__.py": '"""Stand-in for matplotlib where it is not installed: figures draw nothing."""\n\n\n'
+                   'def use(*a, **k):\n    pass\n',
+    "pyplot.py": 'class _Null:\n'
+                 '    def __getattr__(self, name):\n        return self\n\n'
+                 '    def __call__(self, *a, **k):\n        return self\n\n'
+                 '    def __getitem__(self, i):\n        return self\n\n'
+                 '    def __iter__(self):\n        return iter([self] * 4)\n\n'
+                 '    def savefig(self, path, *a, **k):\n        open(path, "wb").close()\n\n\n'
+                 'def subplots(*a, **k):\n    return _Null(), _Null()\n\n\n'
+                 'def close(*a, **k):\n    pass\n',
+}
+
+
+def run_collector(script: str, args: list[str], out: Path) -> float:
+    """``scripts/<script>`` in a subprocess, failing unless it exits 0.  Where
+    matplotlib is not installed it runs over a stand-in whose figures draw
+    nothing (empty PNG files): the check is then of the files it reads."""
+    env = dict(os.environ)
+    if not optional_packages()["matplotlib"]:
+        standin = out / "mpl_standin" / "matplotlib"
+        standin.mkdir(parents=True, exist_ok=True)
+        for name, text in MPL_STANDIN.items():
+            (standin / name).write_text(text)
+        env["PYTHONPATH"] = os.pathsep.join([str(standin.parent), env.get("PYTHONPATH", "")])
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, str(ROOT / "scripts" / script), *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    if done.returncode != 0:
+        fail(f"scripts/{script} exited {done.returncode}: {done.stderr[-1500:]}")
+    return time.perf_counter() - t0
+
+
+def pipeline_path(dev) -> dict:
+    """Phase 28: the paper's pipeline through the port's own entry points,
+    end to end: the record corpus (``scripts.make_record_dataset.main``:
+    3 tracks of 48 s, cut from 8), the ``record`` grid
+    (``experiments.run_grid`` at full width: GRU hidden 32, 4 layers, batch
+    32, 8 s windows at 24 fps, the fixed decoder, all three losses, render
+    size 256; 256 examples a cell, cut from 128,000, each with its evals, FCD,
+    checkpoints and checkpoint renders), ``scripts/collect_grid.py`` on its
+    runs, the calibration G (``scripts.train_calibration_g.main`` at its
+    defaults, 10 steps, cut from 3,000; its npz read back), the absolute OOD
+    (``scripts.ood_absolute.main`` on the committed docs/study checkpoints,
+    n = 64, cut from 256), and the study (``scripts.run_study``: its 8
+    predictors, the grid's three reactors among them (its collapsed-checkpoint
+    guard refusing them at half their lowest validation loss), on 1 clip of
+    16 s, cut from 6, a 256 px G with max_channels 512, random weights, bf16, the
+    comparison optimizer at 128 steps, cut from 512; calibration, battery,
+    forward-only pass, summary.json), then ``scripts/collect_study.py``.
+    Everything is written under build/chip_smoke_runs/pipeline/.  B1 and B2
+    launches exact around the corpus, the grid and the study."""
+    import shutil
+
+    from ssar_tpu_torch import experiments
+    from ssar_tpu_torch.gan.convert import load_npz, load_npz_tree
+    from ssar_tpu_torch.gan.discriminator import Discriminator
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config, init_generator
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2
+    from ssar_tpu_torch.scripts import make_record_dataset, ood_absolute, run_study, train_calibration_g
+
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "chip_smoke_runs" / "pipeline"
+    shutil.rmtree(out, ignore_errors=True)
+    total, stages, peaks = {}, {}, {}
+
+    def stage(name: str, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        stages[name] = time.perf_counter() - t0
+        peaks[name] = _peak_gib()
+        return result
+
+    # the record corpus and its windowed cache
+    record = out / "record"
+    _zero_counts()
+    meta = stage("corpus", lambda: make_record_dataset.main(
+        ["--out", str(record), "--n_tracks", str(PIPELINE_TRACKS), "--seconds", str(PIPELINE_SECONDS)]))
+    _expect("the record corpus", _counts(), sliding_median=PIPELINE_TRACKS * (PATCH_B1 + 4))
+    _add(total, _counts())
+    T = PIPELINE_SECONDS * FPS
+    for i in range(PIPELINE_TRACKS):
+        stem = record / "corpus" / f"track{i:02d}"
+        lat = np.load(stem.with_suffix(".npy"))
+        noises = [np.load(f"{stem}_noise{s}.npy") for s in (4, 8, 16, 32)]
+        if lat.shape != (T, 18, 512) or [n.shape for n in noises] != [(T, s, s) for s in (4, 8, 16, 32)] \
+                or not all(np.isfinite(a).all() for a in [lat, *noises]):
+            fail(f"record corpus {stem.name}: latents {lat.shape}, noise {[n.shape for n in noises]}, or not finite")
+    n_val = np.load(record / "cache" / "val_features.npy", mmap_mode="r").shape[0]
+    n_train = np.load(record / "cache" / "train_features.npy", mmap_mode="r").shape[0]
+    log(f"[pipeline] record corpus: {PIPELINE_TRACKS} tracks of {PIPELINE_SECONDS} s -> {n_train} train / {n_val} "
+        f"val windows (split {meta['train']} | {meta['val']}) in {stages['corpus']:.1f} s")
+
+    # the record grid at full width over that cache
+    grid = dict(experiments.GRIDS["record"])
+    grid["n_examples"] = [PIPELINE_EXAMPLES]
+    grid["_extra"] = {**grid["_extra"], "cache_dir": str(record / "cache")}
+    if grid["batch_size"] != [PIPELINE_BATCH] or grid["hidden_size"] != [32] or grid["num_layers"] != [4]:
+        fail(f"the record grid is no longer the one this phase counts for: {grid}")
+    runs = out / "runs"
+    _zero_counts()
+    rows = stage("grid", lambda: experiments.run_grid("record", str(runs), grid=grid))
+    steps = PIPELINE_EXAMPLES // PIPELINE_BATCH
+    evals = len(range(0, PIPELINE_EXAMPLES, max(64, PIPELINE_EXAMPLES // 10)))
+    val_batches = max(1, n_val // PIPELINE_BATCH)
+    _expect("the record grid", _counts(), sliding_median=3 * 2 * 4, absdiff=5 * (steps + evals * val_batches))
+    _add(total, _counts())
+    if len(rows) != 3 or any("error" in r or not math.isfinite(r["val_loss"]) for r in rows):
+        fail(f"the record grid: {rows}")
+    for r in rows:
+        run = Path(r["log_dir"])
+        tags = {line.split(",")[1] for line in (run / "metrics.csv").read_text().splitlines()}
+        if not {f"Loss/{r['loss']}", "Loss/val", "Eval/FCD"} <= tags or len(list((run / "ckpt").glob("*.pt"))) != 2 \
+                or len(list(run.glob("sample_*.mp4"))) != 2:
+            fail(f"the record grid's {r['loss']} run: tags {sorted(tags)}, files {sorted(p.name for p in run.iterdir())}")
+    log("[pipeline] record grid: " + ", ".join(
+        f"{r['loss']} val {r['val_loss']:.4g} (median {r['val_loss_median']:.4g}) in {r['seconds']:.1f} s"
+        for r in rows) + f"; {steps} steps, {evals} evals a cell")
+
+    plots = "matplotlib" if optional_packages()["matplotlib"] else "a stand-in (no matplotlib here: figures empty)"
+    seconds = run_collector("collect_grid.py", ["--runs", str(runs), "--out", str(out / "docs_grid")], out)
+    if not (out / "docs_grid" / "GRID.md").exists():
+        fail("collect_grid.py wrote no GRID.md")
+    stages["collect_grid"] = seconds
+
+    # the calibration G, read back
+    calib = out / "calibration_g"
+    _zero_counts()
+    curve = stage("calibration_g", lambda: train_calibration_g.main(
+        ["--out", str(calib), "--n_steps", str(PIPELINE_CALIBRATION_STEPS)]))
+    _expect("the calibration G", _counts())
+    config = StyleGAN2Config(resolution=256, max_channels=128)
+    want = init_generator(config, torch.Generator().manual_seed(0))
+    got = _leaves(load_npz(str(calib / "calibration_g.npz"), device=dev))
+    if {k: t.shape for k, t in got.items()} != {k: t.shape for k, t in _leaves(want).items()} \
+            or not all(bool(torch.isfinite(t).all()) for t in got.values()):
+        fail(f"calibration_g.npz read back: {len(got)} tensors, not the 256 px / 128-channel generator's")
+    Discriminator(resolution=256, channel_multiplier=1).load_flax(load_npz_tree(str(calib / "calibration_d.npz")))
+    log(f"[pipeline] calibration G ({curve['n_params'] / 1e6:.2f}M params, {PIPELINE_CALIBRATION_STEPS} steps of "
+        f"batch 16 at 256 px) in {stages['calibration_g']:.1f} s: mse {curve['mse'][0]:.4f}, alignment "
+        f"{curve['target_alignment']:.3f}; both npz read back")
+
+    # the absolute OOD on the committed calibration checkpoints
+    _zero_counts()
+    ood = stage("ood", lambda: ood_absolute.main(["--n", str(PIPELINE_OOD_N), "--out", str(out / "ood_absolute.json")]))
+    _expect("the absolute OOD", _counts())
+    if not all(math.isfinite(v) for row in ood["rows"].values() for v in row.values()):
+        fail(f"ood_absolute: {ood['rows']}")
+    log(f"[pipeline] absolute OOD (n = {PIPELINE_OOD_N}) in {stages['ood']:.1f} s: frechet " + ", ".join(
+        f"{k} {v['frechet']:.4g}" for k, v in ood["rows"].items()) + f"; ordering {'OK' if ood['ordering_ok'] else 'VIOLATED'}")
+
+    # the study over the grid's reactors
+    G = StyleGAN2(output_size=(256, 256), config=StyleGAN2Config(resolution=256, max_channels=512), seed=SEED,
+                  device=dev)
+    clips = [(f"clip{i}", make_record_dataset.synth_track(seed=2000 + i, seconds=run_study.CLIP_SECONDS),
+              make_record_dataset.SR) for i in range(PIPELINE_STUDY_CLIPS)]
+    # 8-step reactors are not trained ones (the supervised cell's fixed-decoder loss runs to thousands): the
+    # collapsed-checkpoint guard refuses them at half the lowest validation loss, and takes all three at the highest
+    vals = [r["val_loss"] for r in rows]
+    refused = False
+    try:
+        run_study.build_models(G, runs, max_val_loss=min(vals) / 2, ssopt_steps=STUDY_SSOPT_STEPS)
+    except SystemExit as e:
+        refused = "REFUSING" in str(e)
+    if not refused:
+        fail(f"run_study.build_models took a run whose validation loss is above --max_val_loss {min(vals) / 2:.4g}")
+    models = run_study.build_models(G, runs, max_val_loss=max(vals), ssopt_steps=STUDY_SSOPT_STEPS)
+    if sorted(models) != sorted(STUDY_MODELS_B1):
+        fail(f"run_study.build_models: {sorted(models)}")
+    study_dir = out / "study"
+    _zero_counts()
+    summary = stage("study", lambda: run_study.study(G, clips, models, study_dir))
+    n = len(clips)
+    calibration_b1 = sum(RECIPE_B1.values()) + len(RECIPE_B1) * SCORE_B1
+    battery_b1 = n * sum(b + SCORE_B1 for b in STUDY_MODELS_B1.values())
+    forward_b1 = n * sum(b for m, b in STUDY_MODELS_B1.items() if m != "random_patch")
+    _expect("the study", _counts(), sliding_median=calibration_b1 + battery_b1 + forward_b1,
+            absdiff=len(RECIPE_B1) + n * len(models) * SCORE_B2)
+    _add(total, _counts())
+    bad = [m for m in models if m not in summary or not all(
+        math.isfinite(summary[m][k]) for k in ("median_correlation", "mean_correlation", "inference_frames_per_s"))]
+    if bad:
+        fail(f"run_study summary.json: missing or non-finite {bad}")
+    log(f"[pipeline] study: {len(models)} models x {n} clip of {run_study.CLIP_SECONDS} s in {stages['study']:.1f} s "
+        f"(wall clock {summary['wall_clock']}): " + ", ".join(
+            f"{m} {summary[m]['median_correlation']:.4f}" for m in models))
+    stages["collect_study"] = run_collector(
+        "collect_study.py", ["--src", str(study_dir), "--out", str(out / "docs_study")], out)
+    if not (out / "docs_study" / "STUDY.md").exists():
+        fail("collect_study.py wrote no STUDY.md")
+    log(f"[pipeline] collect_grid.py and collect_study.py exit 0 with {plots} in {stages['collect_grid']:.1f} / "
+        f"{stages['collect_study']:.1f} s")
+    log("[pipeline] stages " + ", ".join(f"{k} {v:.1f} s" for k, v in stages.items()) + "; peak memory "
+        + ", ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()) + f"; B1 {total.get('sliding_median', 0)}, "
+        f"B2 {total.get('absdiff', 0)} launches (exact); phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def reference_pipeline(dev):
+    """Phase 28's reference check, card against CPU at a small size:
+    ``make_targets`` on 4 s of the corpus's music with a 64 px mapper's
+    palette, the CPU's music information on both devices and the noise
+    banks drawn on the CPU (as phase 12 feeds its patch): latents and each
+    noise level within EXAMPLE_REF_RTOL of the CPU's largest magnitude."""
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Mapper
+    from ssar_tpu_torch.generate import mir
+    from ssar_tpu_torch.scripts.make_record_dataset import SR, make_targets, synth_track
+
+    audio = synth_track(seed=1000, seconds=4)
+    mapper = StyleGAN2Mapper(config=StyleGAN2Config(resolution=64), seed=SEED, device="cpu")
+    palette = mapper(torch.randn(24, 512, generator=torch.Generator().manual_seed(42)))
+    feats, segs, tempo = mir.retrieve_music_information(audio, SR, device="cpu")
+    saved = mir.retrieve_music_information
+    mir.retrieve_music_information = lambda a, sr, device=None: (
+        _to(feats, device), _to(segs, device), tempo)
+    try:
+        with _banks_from_the_cpu():
+            card = make_targets(audio, 1000, palette.to(dev))
+            cpu = make_targets(audio, 1000, palette)
+    finally:
+        mir.retrieve_music_information = saved
+    errs = [float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip([card[0], *card[1]], [cpu[0], *cpu[1]])]
+    if card[0].shape != (4 * FPS, 10, 512) or max(errs) > EXAMPLE_REF_RTOL:
+        fail(f"make_targets card vs CPU: latents {card[0].shape}, errors {errs} (rtol {EXAMPLE_REF_RTOL})")
+    log(f"[reference] make_targets card vs CPU (4 s, 64 px palette, the CPU's music information, banks drawn on "
+        f"the CPU): latents {errs[0]:.3g}, noise levels {[round(e, 9) for e in errs[1:]]} of the largest value")
+
+
+def _leaves(tree, prefix: str = "") -> dict:
+    """{path: tensor} of a nested dict / list of tensors."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        return {path: t for k, v in items for path, t in _leaves(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: tree}
 
 
 def _to(tree, device):

@@ -56,7 +56,7 @@ def emphasize(envs: torch.Tensor, strength: float, percentile: float) -> torch.T
     x = envs - mn
     mx = x.amax(dim=0)
     x = x / mx
-    x = x * (1 + torch.tanh(strength * (x - quantile(x, percentile / 100.0, dim=0))))
+    x = x * (1 + torch.tanh(strength * (x - quantile(x, percentile / 100.0, axis=0))))
     return (x * mx) + mn
 
 

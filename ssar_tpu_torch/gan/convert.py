@@ -101,17 +101,24 @@ def _unflatten(flat: dict) -> dict:
     return listify(root)
 
 
+def load_npz_tree(path: str) -> dict:
+    """Any JAX-layout ``.npz`` (a generator's, or a discriminator's
+    ``{"params": ...}``) as its nested tree of float32 numpy arrays."""
+    with np.load(path) as data:
+        return _unflatten({k: data[k].astype(np.float32) for k in data.files})
+
+
 def load_npz(path: str, device=None) -> dict:
     """A JAX-layout ``.npz`` checkpoint (float16 storage allowed) as the port's
     parameters."""
-    with np.load(path) as data:
-        flat = {k: data[k].astype(np.float32) for k in data.files}
-    return sg.params_from_jax(_unflatten(flat), device=device)
+    return sg.params_from_jax(load_npz_tree(path), device=device)
 
 
-def save_npz(path: str, params: dict) -> None:
-    """The port's parameters as a JAX-layout ``.npz`` (``load_npz`` of either
-    package reads it)."""
+def save_npz(path: str, params: dict, dtype=None) -> None:
+    """The port's generator parameters, or any tree already in the JAX
+    package's layout (a discriminator's ``{"params": discriminator_flax_tree(D)}``),
+    as a JAX-layout ``.npz`` that ``load_npz`` of either package reads;
+    stored as `dtype` (e.g. ``np.float16``) when given."""
     flat = {}
 
     def walk(prefix, node):
@@ -122,9 +129,11 @@ def save_npz(path: str, params: dict) -> None:
             for i, v in enumerate(node):
                 walk(f"{prefix}{i}/", v)
         else:
-            flat[prefix[:-1]] = node
+            a = node.detach().cpu().float().numpy() if torch.is_tensor(node) else np.asarray(node)
+            flat[prefix[:-1]] = a if dtype is None else a.astype(dtype)
 
-    walk("", sg.params_to_jax(params))
+    generator = "const" in params and "mapping" in params
+    walk("", sg.params_to_jax(params) if generator else params)
     np.savez(path, **flat)
 
 

@@ -1,7 +1,9 @@
 """Audio-reactivity metrics: the correlation zoo, rhythmic and chromatic
 reactivity, the per-file evaluation, the comparison harness, the AV feature
-study, the preliminary study and the image-quality metrics.  The context FID is imported from its
-module (``metrics.context_fid``): it builds on ``models``, which import this
+study, the preliminary study and the image-quality metrics.  The context FID's
+names, which ``ssar_tpu/metrics/__init__.py`` exports (``CausalCNNEncoder``,
+``context_fid``, ``train_encoder``), are imported from their module
+(``metrics.context_fid``): it builds on ``models``, which import this
 package through the patch system."""
 from .analysis import COVARIANCE_DISTANCES, knn_kl_divergence, mutual_information, pca
 from .chroma import chromatic_reactivity

@@ -261,7 +261,7 @@ def joint_recurrence_plot(X, percentage: float = 50.0) -> torch.Tensor:
         X = X[None]
     x = X.transpose(1, 2)  # (m, p, t)
     d = torch.sqrt((x[..., :, None] - x[..., None, :]) ** 2)  # (m, p, t, t)
-    thr = quantile(d.reshape(*d.shape[:2], -1), percentage / 100.0, dim=-1)
+    thr = quantile(d.reshape(*d.shape[:2], -1), percentage / 100.0, axis=-1)
     J = torch.prod((d <= thr[..., None, None]).to(torch.float32), dim=1)
     return J[0] if squeeze else J
 
@@ -298,7 +298,7 @@ def minirocket_fit(X, quantiles_per_kernel: int = 4, seed: int = 0) -> dict:
     qs = np.linspace(0.1, 0.9, quantiles_per_kernel).astype(np.float32)
     conv = _mr_conv(X, mix, dilations)  # (m, D, 84, t)
     flat = conv.permute(1, 2, 0, 3).reshape(len(dilations), len(_MR_INDICES), -1)
-    biases = torch.stack([quantile(flat, float(q), dim=-1) for q in qs])  # (Q, D, 84)
+    biases = quantile(flat, qs, axis=-1)  # (Q, D, 84), from one sort
     return {"dilations": dilations, "mix": mix, "biases": biases.cpu().numpy()}
 
 

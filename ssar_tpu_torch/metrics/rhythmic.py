@@ -45,7 +45,7 @@ def percentile_clip(signal: torch.Tensor, percent: float) -> torch.Tensor:
 def _postprocess(x: torch.Tensor, fps: float, q: float = 0.025) -> torch.Tensor:
     x = gaussian_filter(x, fps / 12)
     x = percentile_clip(x, (1 - q) * 100)
-    x = torch.clamp(torch.maximum(x, quantile(x, 4 * q, dim=0)), max=1.0)
+    x = torch.clamp(torch.maximum(x, quantile(x, 4 * q, axis=0)), max=1.0)
     x = gaussian_filter(x, fps / 24)
     return x / (torch.linalg.vector_norm(x) + 1e-12)
 

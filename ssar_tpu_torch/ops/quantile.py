@@ -11,28 +11,36 @@ from __future__ import annotations
 import torch
 
 
-def _interp(sorted_x: torch.Tensor, q: float, dim: int) -> torch.Tensor:
+def _interp(sorted_x: torch.Tensor, q, dim: int) -> torch.Tensor:
     """Interpolate the order statistics of `sorted_x` (sorted along `dim`) at
-    ``q * (n - 1)``, computed in the data's dtype as jnp.quantile does."""
+    ``q * (n - 1)``, computed in the data's dtype as jnp.quantile does.  A
+    scalar `q` removes `dim`; a sequence puts its values on a leading axis in
+    place of it."""
     n = sorted_x.shape[dim]
-    pos = torch.tensor(q, dtype=sorted_x.dtype, device=sorted_x.device) * (n - 1)
+    qs = torch.as_tensor(q, dtype=sorted_x.dtype, device=sorted_x.device)
+    pos = qs.reshape(-1) * (n - 1)
     lo = torch.floor(pos)
-    frac = pos - lo
+    frac = (pos - lo).reshape([-1] + [1] * (sorted_x.ndim - 1))
     lo_i = lo.long().clamp(0, n - 1)
     hi_i = torch.ceil(pos).long().clamp(0, n - 1)
-    lo_v = sorted_x.index_select(dim, lo_i.reshape(1)).squeeze(dim)
-    hi_v = sorted_x.index_select(dim, hi_i.reshape(1)).squeeze(dim)
-    return lo_v * (1 - frac) + hi_v * frac
+    lines = sorted_x.movedim(dim, 0)
+    out = lines[lo_i] * (1 - frac) + lines[hi_i] * frac
+    return out[0] if qs.ndim == 0 else out
 
 
-def quantile(x: torch.Tensor, q: float, dim: int | None = None, keepdim: bool = False) -> torch.Tensor:
-    """Linear-interpolation quantile (numpy / torch.quantile semantics)."""
-    if dim is None:
+def quantile(x: torch.Tensor, q, axis: int | None = None, keepdims: bool = False, *,
+             dim: int | None = None) -> torch.Tensor:
+    """Linear-interpolation quantile, ``jnp.quantile(x, q, axis, keepdims)``:
+    over all of `x` or along `axis`; a sequence `q` gives a leading axis of
+    its values.  ``dim`` is torch's name for `axis`."""
+    axis = dim if axis is None else axis
+    lead = torch.as_tensor(q).ndim   # 1 for a sequence q, which takes the first axis of the result
+    if axis is None:
         out = _interp(torch.sort(x.reshape(-1)).values, q, 0)
-        return out.reshape([1] * x.ndim) if keepdim else out
-    dim = dim % x.ndim
-    out = _interp(torch.sort(x, dim=dim).values, q, dim)
-    return out.unsqueeze(dim) if keepdim else out
+        return out.reshape(out.shape[:lead] + (1,) * x.ndim) if keepdims else out
+    axis = axis % x.ndim
+    out = _interp(torch.sort(x, dim=axis).values, q, axis)
+    return out.unsqueeze(axis + lead) if keepdims else out
 
 
 def quantiles(x: torch.Tensor, qs) -> tuple[torch.Tensor, ...]:
@@ -76,8 +84,8 @@ def clamp_peaks_percentile(signal: torch.Tensor, percent: float) -> torch.Tensor
 
 def clamp_upper_percentile(signal: torch.Tensor, percentile: float) -> torch.Tensor:
     """Clamp each column above its `percentile`."""
-    return torch.minimum(signal, quantile(signal, percentile / 100.0, dim=0))
+    return torch.minimum(signal, quantile(signal, percentile / 100.0, axis=0))
 
 
 def clamp_lower_percentile(signal: torch.Tensor, percentile: float) -> torch.Tensor:
-    return torch.maximum(signal, quantile(signal, percentile / 100.0, dim=0))
+    return torch.maximum(signal, quantile(signal, percentile / 100.0, axis=0))

@@ -28,7 +28,8 @@ drawn on the CPU, within 1e-3, B1's launches exact; ``set_bends`` takes a
 CUDA modulation (fault C5).  The multi-rank helpers at world size 1 on an
 NCCL group: ``shard_batch`` and ``replicate`` are identities and
 ``synthesize_tp`` on a (1, 1) mesh equals ``synthesis`` (torch.equal);
-``resolve_device`` under ``torchrun``'s ``LOCAL_RANK``.
+``resolve_device`` under ``torchrun``'s ``LOCAL_RANK``.  The record
+corpus's ``make_targets`` on a 4 s track launches B1 exactly 8 times.
 """
 import pytest
 import torch
@@ -731,3 +732,22 @@ def test_resolve_device_under_torchrun(cuda_device, monkeypatch):
     assert resolve_device() == torch.device("cuda", 0) and torch.cuda.current_device() == 0
     monkeypatch.delenv("LOCAL_RANK")
     assert resolve_device() == torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_make_targets_on_the_card_launches_b1_eight_times(cuda_device):
+    """The record corpus's targets for a 4 s track on the card: one
+    ``retrieve_music_information``, four HPSS of two filters each (B1
+    exactly 8); latents (T, 18, 512) and the four noise levels finite."""
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Mapper
+    from ssar_tpu_torch.ops import median_cuda
+    from ssar_tpu_torch.scripts.make_record_dataset import FPS, make_targets, synth_track
+
+    z = torch.randn(24, 512, generator=torch.Generator().manual_seed(42))
+    palette = StyleGAN2Mapper(seed=0, device=cuda_device)(z)
+    before = median_cuda.launches
+    latents, noises = make_targets(synth_track(1000, seconds=4), 1000, palette)
+    assert median_cuda.launches - before == 8
+    T = 4 * FPS
+    assert latents.shape == (T, 18, 512) and [n.shape for n in noises] == [(T, s, s) for s in (4, 8, 16, 32)]
+    assert all(bool(torch.isfinite(torch.as_tensor(a)).all()) for a in [latents, *noises])

@@ -372,6 +372,17 @@ def test_quantiles(rng):
     assert torch.isinf(t_q.masked_quantile(torch.as_tensor(x), torch.zeros(200, 5, dtype=torch.bool), 0.5))
 
 
+@pytest.mark.parametrize("q,kw", [(0.5, {"axis": 0}), (0.5, {"keepdims": True}), ([0.25, 0.75], {"axis": 1})])
+def test_quantile_takes_the_jax_call_surface(rng, q, kw):
+    """C7: ``axis`` / ``keepdims`` under the JAX names and a sequence ``q``
+    (a leading axis), as ``ssar_tpu.ops.quantile`` takes them."""
+    x = rng.randn(40, 7).astype(np.float32)
+    got = t_q.quantile(torch.as_tensor(x), q, **kw)
+    want = j_q.quantile(jnp.asarray(x), jnp.asarray(q), **kw)
+    assert tuple(got.shape) == want.shape
+    _close(got, want, 1e-6)
+
+
 def test_percentile_clamps(rng):
     x = rng.randn(120, 6).astype(np.float32)
     _close(t_q.clamp_peaks_percentile(torch.as_tensor(x), 97.5),
