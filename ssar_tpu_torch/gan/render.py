@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import axis_rank, get_mesh, shard_batch
+from ..utils.profiling import span
 from .video_io import VideoWriter
 
 
@@ -104,16 +105,18 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
         return _pad_batch(window, b)[..., None]
 
     def synth(i):
-        """Batch i's frames (+1) / 2, converted; on ranks other than 0, None."""
+        """Batch i's frames in [-1, 1], gathered on rank 0; on other ranks, None."""
         lat = shard_batch(_pad_batch(latents[i : i + batch_size], batch_size), mesh)
         b = lat.shape[0]
         lo = i + (axis_rank(mesh, "data") * b if b < batch_size else 0)
         kw = {}
         if noises is not None:
-            kw["noises"] = [batch_noise(n, i, b, lo) for n in noises]
+            with span("render.noise"):
+                kw["noises"] = [batch_noise(n, i, b, lo) for n in noises]
         if getattr(synthesizer, "bend_mods", None):
             kw["frame_idx"] = shard_batch(torch.arange(i, i + batch_size).clamp(max=T - 1), mesh)
-        frames = synthesizer(lat, **kw)
+        with span("render.synthesis"):
+            frames = synthesizer(lat, **kw)
         if b < batch_size:
             parts = [torch.empty_like(frames) for _ in range(batch_size // b)] if main else None
             dist.gather(frames.contiguous(), parts, dst=0)
@@ -122,6 +125,10 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
             frames = torch.cat(parts)
         elif not main:
             return None
+        return frames
+
+    def convert(frames):
+        """Frames in [-1, 1] -> the uint8 frames the writer takes."""
         frames = (frames + 1.0) / 2.0
         if postprocess_fn is not None:
             frames = postprocess_fn(frames)
@@ -131,8 +138,9 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
 
     starts = list(range(0, T, batch_size))
     if not main:
-        for i in starts:
-            synth(i)
+        with span("render.loop"):
+            for i in starts:
+                synth(i)
         return writer
     if writer is None:
         writer = VideoWriter(out_file, output_size, fps=fps, audio_file=audio_file,
@@ -147,22 +155,27 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
     def launch(j):
         """Queue batch j; on the card, its fetch into pinned host buffer j % 2."""
         if not cuda:
-            return synth(starts[j])
+            frames = synth(starts[j])
+            with span("render.transfer"):
+                return convert(frames)
         with torch.cuda.stream(stream):
-            out = synth(starts[j])
-            slot = j % 2
-            if host[slot] is None:
-                host[slot] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host[slot].copy_(out, non_blocking=True)
-            done[slot] = torch.cuda.Event()
-            done[slot].record(stream)
+            frames = synth(starts[j])
+            with span("render.transfer"):
+                out = convert(frames)
+                slot = j % 2
+                if host[slot] is None:
+                    host[slot] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host[slot].copy_(out, non_blocking=True)
+                done[slot] = torch.cuda.Event()
+                done[slot].record(stream)
         return slot
 
     def fetch(token):
-        if not cuda:
-            return token.numpy()
-        done[token].synchronize()
-        return host[token].numpy()
+        with span("render.wait"):
+            if not cuda:
+                return token.numpy()
+            done[token].synchronize()
+            return host[token].numpy()
 
     batches = range(len(starts))
     if progress:
@@ -173,14 +186,15 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
         except ImportError:
             pass
 
-    with writer as video:
+    with span("render.loop"), writer as video:
         pending = launch(0) if starts else None
         for j in batches:
             nxt = launch(j + 1) if j + 1 < len(starts) else None
             # batch j + 1 never reuses batch j's buffer: slots alternate, and
             # batch j + 2 is only queued after batch j has been written
             frames = fetch(pending)
-            for f in frames[: min(batch_size, T - starts[j])]:
-                video.write_i420(f) if f.ndim == 2 else video.write(f)
+            with span("render.write"):
+                for f in frames[: min(batch_size, T - starts[j])]:
+                    video.write_i420(f) if f.ndim == 2 else video.write(f)
             pending = nxt
     return writer

@@ -16,6 +16,7 @@ from ..audio.features import audio2features
 from ..gan.render import render_latents_to_video
 from ..gan.wrapper import StyleGAN2Mapper, StyleGAN2Synthesizer
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 def duplicate_pyramid(noise: list) -> list:
@@ -111,12 +112,16 @@ def audio2video(model, audio_file: str | None, out_file: str | None = None, mode
 
     `model` is a ``LatentNoiseReactor`` on `device` (the CUDA device unless
     given); its base noise is drawn from a generator seeded with `seed`.
+    Its stages are the spans ``audio2video.features``, ``audio2video.reactor``
+    and the render's (``gan.render``).
     """
     device = resolve_device(device)
     if audio is None:
         audio, sr = load_wav(audio_file)
-    features = audio2features(audio, int(sr), fps, device=device)
-    latents, noise = react(model, features, torch.Generator(device).manual_seed(seed or 0))
+    with span("audio2video.features"):
+        features = audio2features(audio, int(sr), fps, device=device)
+    with span("audio2video.reactor"):
+        latents, noise = react(model, features, torch.Generator(device).manual_seed(seed or 0))
     return render_reaction(latents, noise, out_file, model_file=model_file, output_size=output_size,
                            fps=fps, batch_size=batch_size, audio_file=audio_file, offset=offset,
                            duration=duration, seed=seed, residual=residual, gan_config=gan_config,

@@ -14,7 +14,6 @@ generator, so the whole path runs without any assets.
 from __future__ import annotations
 
 import argparse
-import time
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +26,7 @@ from ..gan.wrapper import StyleGAN2
 from ..ops.resample import resample
 from ..train.data import load_audio as load_audio_file
 from ..utils.device import full_precision, resolve_device
+from ..utils.profiling import span
 from . import keys
 from .mir import retrieve_music_information
 from .patch import Patch
@@ -68,13 +68,15 @@ def generate(audio_file: str | None = None, patch_file: str | None = None, seed:
     returns the output path.  `writer` is a frame writer with ``write_i420``
     / ``write`` (default: a ``VideoWriter`` on the output path); the patch's
     JSON is written beside the output path either way.  Runs on the CUDA
-    device unless `device` says otherwise.  When
+    device unless `device` says otherwise; its stages are spans
+    (``utils.profiling.span``: ``sample.*``, ``mir.*``, ``render.*``).  When
     `stats` is a dict, stage seconds ("load_s", "mir_features_s",
     "mir_segmentation_s", "model_s": the generator and its palette,
     "patch_s": ``Patch.forward``, "render_s"), the frame count and the bytes
-    of the noise banks the render uses ("bank_bytes") are written into it."""
+    of the noise banks the render uses ("bank_bytes") are written into it,
+    and the model build and the patch end in a synchronise."""
     device = resolve_device(device)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync = torch.cuda.synchronize if device.type == "cuda" and stats is not None else (lambda: None)
     stats = {} if stats is None else stats
     if seed is None:
         seed = int(np.random.randint(0, 2**31))
@@ -85,10 +87,9 @@ def generate(audio_file: str | None = None, patch_file: str | None = None, seed:
     stem = Path(audio_file).stem if audio_file else "synthetic"
     out_file = f"{out_dir}/{stem}_RandomPatches_seed{seed}_{out_size[0]}x{out_size[1]}.mp4"
 
-    t0 = time.perf_counter()
-    if audio is None:
-        audio, sr = load_audio(audio_file, audio_offset, audio_duration, fps, device=device)
-    stats["load_s"] = time.perf_counter() - t0
+    with span("sample.load", stats, "load_s"):
+        if audio is None:
+            audio, sr = load_audio(audio_file, audio_offset, audio_duration, fps, device=device)
 
     print("extracting information from audio...")
     seconds = {}
@@ -101,17 +102,15 @@ def generate(audio_file: str | None = None, patch_file: str | None = None, seed:
         patch = Patch.load(patch_file, features=features, segmentations=segmentations, tempo=tempo, fps=fps)
     print(patch)
 
-    t0 = time.perf_counter()
-    G = StyleGAN2(model_file=model_file, output_size=out_size, config=config, seed=seed, device=device)
-    if latent_seeds is None:
-        latent_palette = G.mapper(keys.normal(keys.PRNGKey(seed), (180, 512), device=device))
-    else:
-        latent_palette = G.get_w_latents(latent_seeds)
-    sync()
-    stats["model_s"] = time.perf_counter() - t0
+    with span("sample.model_build", stats, "model_s"):
+        G = StyleGAN2(model_file=model_file, output_size=out_size, config=config, seed=seed, device=device)
+        if latent_seeds is None:
+            latent_palette = G.mapper(keys.normal(keys.PRNGKey(seed), (180, 512), device=device))
+        else:
+            latent_palette = G.get_w_latents(latent_seeds)
+        sync()
 
     print("preparing latent and noise sequences...")
-    t0 = time.perf_counter()
     # The synthesizer stops at the nearest power of two >= the output size
     # and resizes; the patch's noise modules are made on that (square) grid
     # and aligned by spatial scale: rendering 256 px from a 1024 px model,
@@ -119,48 +118,49 @@ def generate(audio_file: str | None = None, patch_file: str | None = None, seed:
     # offset by 2 log2(d), as the JAX package does.
     n_used = G.synthesizer.n_noises_used
     d_synth = max(config.resolution // G.synthesizer.synth_res, 1)
-    with torch.no_grad():
+    with span("sample.patch", stats, "patch_s"), torch.no_grad():
         latents, noise = patch.forward(latent_palette, downscale_factor=d_synth, aspect_ratio=1)
-    offset = 2 * int(round(np.log2(d_synth)))
-    noise = noise[offset : offset + n_used]
-    sync()
-    stats["patch_s"] = time.perf_counter() - t0
+        offset = 2 * int(round(np.log2(d_synth)))
+        noise = noise[offset : offset + n_used]
+        sync()
     stats["bank_bytes"] = sum(_bank_bytes(n) for n in noise)
 
     print("rendering...")
     T = latents.shape[0]
     bs = min(batch_size, T)
     i420 = out_size[1] % 4 == 0 and out_size[0] % 2 == 0
-
-    @torch.no_grad()
-    def render_chunk(s: int) -> torch.Tensor:
-        ns = [nm(s, bs)[..., None] for nm in noise]   # (bs, H, W, 1)
-        frames = torch.clamp((G.synthesizer(latents[s : s + bs], noises=ns) + 1) / 2, 0, 1)
-        if i420 and tuple(frames.shape[1:3]) == (out_size[1], out_size[0]):
-            return rgb_to_i420(frames)
-        return (frames * 255.0 + 0.5).to(torch.uint8)
-
     cuda = device.type == "cuda"
     pinned: list = [None, None]
 
+    @torch.no_grad()
     def launch(j: int, s: int):
         """Queue chunk j; on the card, its copy into pinned buffer j % 2."""
-        out = render_chunk(s)
-        if not cuda:
-            return out.numpy()
-        if pinned[j % 2] is None:
-            pinned[j % 2] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        pinned[j % 2].copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        with span("render.noise"):
+            ns = [nm(s, bs)[..., None] for nm in noise]   # (bs, H, W, 1)
+        with span("render.synthesis"):
+            frames = G.synthesizer(latents[s : s + bs], noises=ns)
+        with span("render.transfer"):
+            frames = torch.clamp((frames + 1) / 2, 0, 1)
+            if i420 and tuple(frames.shape[1:3]) == (out_size[1], out_size[0]):
+                out = rgb_to_i420(frames)
+            else:
+                out = (frames * 255.0 + 0.5).to(torch.uint8)
+            if not cuda:
+                return out.numpy()
+            if pinned[j % 2] is None:
+                pinned[j % 2] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            pinned[j % 2].copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return pinned[j % 2], done
 
     def fetch(token) -> np.ndarray:
-        if not cuda:
-            return token
-        host, done = token
-        done.synchronize()
-        return host.numpy()
+        with span("render.wait"):
+            if not cuda:
+                return token
+            host, done = token
+            done.synchronize()
+            return host.numpy()
 
     starts = chunk_starts(T, bs)
     Path(out_file).parent.mkdir(parents=True, exist_ok=True)
@@ -168,9 +168,8 @@ def generate(audio_file: str | None = None, patch_file: str | None = None, seed:
     if writer is None:
         writer = VideoWriter(output_file=out_file, output_size=out_size, fps=fps, audio_file=audio_file,
                              audio_offset=audio_offset, audio_duration=audio_duration)
-    t0 = time.perf_counter()
     written = 0
-    with writer as video:
+    with span("render.loop", stats, "render_s"), writer as video:
         pending, pending_start = None, 0
         for j, s in enumerate(starts + [None]):
             # chunk j is queued before chunk j - 1 is fetched; buffers alternate,
@@ -178,11 +177,11 @@ def generate(audio_file: str | None = None, patch_file: str | None = None, seed:
             nxt = None if s is None else launch(j, s)
             if pending is not None:
                 frames = fetch(pending)
-                for f in frames[written - pending_start:]:   # skip the overlap already written
-                    video.write_i420(f) if f.ndim == 2 else video.write(f)
-                    written += 1
+                with span("render.write"):
+                    for f in frames[written - pending_start:]:   # skip the overlap already written
+                        video.write_i420(f) if f.ndim == 2 else video.write(f)
+                        written += 1
             pending, pending_start = nxt, (s or 0)
-    stats["render_s"] = time.perf_counter() - t0
     stats["frames"] = written
     print(f"wrote {out_file}")
     return out_file

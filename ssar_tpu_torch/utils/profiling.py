@@ -1,11 +1,12 @@
-"""Tracing and timing helpers: a profiler trace, a stage timer that waits for
-the card, and a grid autotuner.
+"""Tracing and timing helpers: a profiler trace, the program's spans, a stage
+timer that waits for the card, and a grid autotuner.
 
 Counterpart of ``ssar_tpu/utils/profiling.py``.  ``trace`` writes a
 ``torch.profiler`` Chrome trace (readable in Perfetto) where the JAX package
-writes a ``jax.profiler`` one; ``StageTimer`` synchronises the CUDA device
-where the JAX one blocks on a result; ``autotune`` times each configuration
-with CUDA events on the card.
+writes a ``jax.profiler`` one; ``span`` marks a stage of the program on that
+trace (``span:<name>``); ``StageTimer`` synchronises the CUDA device where
+the JAX one blocks on a result; ``autotune`` times each configuration with
+CUDA events on the card.
 """
 from __future__ import annotations
 
@@ -35,6 +36,27 @@ def trace(log_dir: str = "build/torch-trace"):
     stem = time.strftime("trace-%Y%m%d-%H%M%S")
     n = len(list(out.glob(f"{stem}-*.json")))
     prof.export_chrome_trace(str(out / f"{stem}-{n}.json"))
+
+
+@contextlib.contextmanager
+def span(name: str, seconds: dict | None = None, key: str | None = None):
+    """Mark the block as the program's stage `name`.
+
+    While a torch profiler records, the block is the range ``span:<name>``
+    on the profiler's clock, the device's; otherwise it costs a C call.  It
+    never synchronises, so its host seconds are those of the enqueue unless
+    the block waits itself.  With `seconds`, the block's host seconds are
+    added to ``seconds[key]`` (`key` defaults to `name`) when it ends
+    without raising, whether or not a profiler records."""
+    t0 = time.perf_counter() if seconds is not None else 0.0
+    if torch._C._autograd._profiler_enabled():
+        with torch.profiler.record_function("span:" + name):
+            yield
+    else:
+        yield
+    if seconds is not None:
+        k = name if key is None else key
+        seconds[k] = seconds.get(k, 0.0) + time.perf_counter() - t0
 
 
 def _wait(sync) -> None:
