@@ -35,6 +35,12 @@ Phases (any failure exits non-zero and prints no result line):
      (192, 3 x 1024 x 1024), at split plans (a ragged and an odd E), each
      row's share of its bound, and at float16 and bfloat16 inputs read as
      they are (one kernel a call on the profiler's trace, no cast);
+  3e. kernel check: the noise-tree pair (N1) on a seeded patch's 17 trees at
+     1024 px, b = 16, against the eager trees on the card (within 1e-5 of
+     each window's largest magnitude) at a 60 s track's first, middle and
+     clamped last windows, two calls bit-identical, 2 launches a tree, no
+     opaque leaf; one chunk's 17 trees timed by kernel and by eager tree
+     beside the bound (banks read once, windows written once);
   3c. kernel check: the sliding median's backward (B1 bwd) against its plain
      version (torch.equal) at the HPSS and long-form chunk shapes on both
      axes, the optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and
@@ -94,7 +100,8 @@ Phases (any failure exits non-zero and prints no result line):
      same call at downscale_factor 1 (1024 x 1024, all 17 noise layers) on
      the first 20 s (480 frames); stage seconds, fps, x realtime, the noise
      banks' bytes and peak memory; the sliding-median launch count read
-     around each call and checked exactly (8: four HPSS);
+     around each call and checked exactly (8: four HPSS), and the noise-tree
+     counters (a tree a layer a chunk, 2 launches a tree, no opaque leaf);
   12. reference check at a small size in fp32 (64 px model, 4 s track):
      retrieve_music_information on the card and on the CPU (features within
      the docs/PARITY.md budgets, the same tempo, the same labels from the
@@ -570,6 +577,8 @@ def main():
     # --------------------------------------------------------------- 3b --
     absdiff_rows, absdiff_err = check_absdiff(dev)
     vdm_rows, vdm_err, vdm_bwd_err = check_vandermonde(dev)
+    # --------------------------------------------------------------- 3e --
+    noise_row, noise_err = check_noise_tree(dev)
 
     # ---------------------------------------------------------------- 4 --
     sr_in = 44100
@@ -786,6 +795,12 @@ def main():
         "launches_sashimi": sashimi_counts["s4d_vandermonde_bwd"],
         "launches_checkpoint": checkpoint_counts["s4d_vandermonde_bwd"],
         "launches_parallel": parallel_counts["s4d_vandermonde_bwd"],
+    }, {
+        "name": "noise_tree", "route": "cuda", "source": "ssar_tpu_torch/csrc/noise_tree.cu",
+        # no TPU kernel: the JAX package's XLA fuses the trees with the synthesis (ssar_tpu/generate/sample.py:101)
+        "replaces": None, "launches": patch_counts["noise_tree"], "max_abs_err": noise_err,
+        # one 16-frame chunk's 17 trees at 1024 px
+        **noise_row, "library_ms": None,
     }]
     log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1373,6 +1388,75 @@ def check_absdiff(dev):
     return rows, max_err
 
 
+def check_noise_tree(dev) -> tuple[dict, float]:
+    """Phase 3e: the noise-tree kernel pair (``csrc/noise_tree.cu``) on a
+    seeded patch's 17 trees at 1024 px over a 60 s track's fake music
+    information (the features' widths, random values), b = 16: each window
+    within 1e-5 of its largest magnitude of the eager tree on the card
+    (``noise.eager``; the affine form adds in another order) at the first,
+    a middle and a clamped last start, two calls bit-identical, 2 launches a
+    tree, no opaque leaf.  Then one chunk's 17 trees by kernel and by eager
+    tree: device time (profiler), the host's enqueue (no synchronise) and the
+    synchronised call, beside the bound: each bank plane and each Loop bank
+    read once and the (16, H, W) windows written once, at 3.35 TB/s."""
+    from ssar_tpu_torch.generate import keys
+    from ssar_tpu_torch.generate import noise as N
+    from ssar_tpu_torch.generate.mir import ALLFEATS, UNITFEATS
+    from ssar_tpu_torch.generate.patch import Patch
+    from ssar_tpu_torch.ops import noise_tree_cuda
+
+    T, b = PATCH_SECONDS * FPS, 16
+    g = torch.Generator().manual_seed(SEED)
+    widths = {"chromagram": 12, "tonnetz": 6, "mfcc": 20, "spectral_contrast": 7, **{n: 1 for n in UNITFEATS}}
+    feats = {n: torch.rand(T, widths[n], generator=g).to(dev) for n in ALLFEATS}
+    segs = {(n, k): torch.randint(0, k, (T,), generator=g).to(dev) for n in ALLFEATS for k in (2, 4, 6, 8, 12, 16)}
+    palette = keys.normal(keys.PRNGKey(SEED), (180, 18, 512), device=dev)
+    opaque, max_err = noise_tree_cuda.opaque_leaves, 0.0
+    with torch.no_grad():
+        _, trees = Patch(feats, segs, 120.0, fps=FPS, seed=SEED).forward(palette)
+        for i in (0, T // 2 + 3, T - 5):
+            for layer, tree in enumerate(trees):
+                before = noise_tree_cuda.launches
+                got, again = tree(i, b), tree(i, b)
+                if noise_tree_cuda.launches - before != 4:
+                    fail(f"noise tree {layer}: {noise_tree_cuda.launches - before} launches for two calls, expected 4")
+                want = N.eager(tree, i, b)
+                err = float((got - want).abs().max() / want.abs().max())
+                if not err <= 1e-5 or not torch.equal(got, again):
+                    fail(f"noise tree {layer} at ({i}, {b}): {err:.3g} of the eager tree's largest magnitude, "
+                         f"two calls equal: {torch.equal(got, again)}")
+                max_err = max(max_err, err)
+        if noise_tree_cuda.opaque_leaves != opaque:
+            fail(f"noise trees of a patch evaluated {noise_tree_cuda.opaque_leaves - opaque} opaque leaves")
+
+        def chunk():
+            return [tree(0, b) for tree in trees]
+
+        def eager_chunk():
+            return [N.eager(tree, 0, b) for tree in trees]
+
+        row = {"ms": device_ms_per_call(chunk, calls=10), "plain_ms": device_ms_per_call(eager_chunk, calls=10),
+               "call_ms": cuda_ms(chunk, runs=10), "plain_call_ms": cuda_ms(eager_chunk, runs=10)}
+        for name, fn in (("enqueue_ms", chunk), ("plain_enqueue_ms", eager_chunk)):
+            times = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            row[name] = float(np.median(times))
+    planes = [(tree._plan.n_planes + 3 * len(tree._plan.loops)) * tree.size[0] * tree.size[1] for tree in trees]
+    out = [b * tree.size[0] * tree.size[1] for tree in trees]
+    row.update(bound_ms=4 * (sum(planes) + sum(out)) / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    sizes = [(len(t._plan.nodes), t._plan.n_planes, len(t._plan.loops)) for t in trees]
+    log(f"[kernel] noise_tree: 17 trees of a seeded patch at 1024 px within {max_err:.3g} of the eager trees, "
+        f"two calls bit-identical, 2 launches a tree; one chunk (b = {b}): device {row['ms']:.3f} ms (eager "
+        f"{row['plain_ms']:.3f}), bound {row['bound_ms']:.3f} ms ({row['bound_ms'] / row['ms']:.1%}); host enqueue "
+        f"{row['enqueue_ms']:.3f} ms (eager {row['plain_enqueue_ms']:.3f}); call {row['call_ms']:.3f} ms (eager "
+        f"{row['plain_call_ms']:.3f}); (nodes, planes, loops) a layer {sizes}")
+    return row, max_err
+
+
 def vandermonde_f64(args, L: int, g: torch.Tensor):
     """K and its four gradients (da, db, dcre, dcim) for the cotangent g in
     float64, from the same fp32-rounded products fl(a l) and fl(b l) that the
@@ -1943,7 +2027,7 @@ def patch_path(dev) -> dict:
     from ssar_tpu_torch.generate import keys, sample
     from ssar_tpu_torch.generate.mir import retrieve_music_information
     from ssar_tpu_torch.generate.patch import Patch
-    from ssar_tpu_torch.ops import median_cuda
+    from ssar_tpu_torch.ops import median_cuda, noise_tree_cuda
 
     out_dir = ROOT / "build" / "chip_smoke_runs" / "patch"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1991,6 +2075,7 @@ def patch_path(dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         median_cuda.launches = 0
+        trees_before = (noise_tree_cuda.launches, noise_tree_cuda.trees, noise_tree_cuda.opaque_leaves)
         stats, sink = {}, FrameSink(shape)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(None):
@@ -2001,6 +2086,13 @@ def patch_path(dev) -> dict:
         total = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2**30
         b1, side = median_cuda.launches, shape[1]
+        # a tree a layer a chunk, two launches a tree (each has the patch's base Loop), no opaque leaf
+        n1, n_trees, n_opaque = (after - before for after, before in zip(
+            (noise_tree_cuda.launches, noise_tree_cuda.trees, noise_tree_cuda.opaque_leaves), trees_before))
+        want_trees = len(sample.chunk_starts(n_frames, batch)) * (2 * int(np.log2(side)) - 3)
+        if (n1, n_trees, n_opaque) != (2 * want_trees, want_trees, 0):
+            fail(f"random-patch path at {side} px: noise-tree launches, trees, opaque leaves {(n1, n_trees, n_opaque)}, "
+                 f"expected {(2 * want_trees, want_trees, 0)}")
         if b1 != PATCH_B1:
             fail(f"random-patch path at {side} px launched the sliding median {b1} times, expected {PATCH_B1}")
         if len(sink.crcs) != n_frames or stats["frames"] != n_frames:
@@ -2016,10 +2108,11 @@ def patch_path(dev) -> dict:
                 "load_s", "mir_features_s", "mir_segmentation_s", "model_s", "patch_s", "render_s"))
             + f"; end to end {total:.3f} s = {n_frames / total:.2f} fps = {seconds / total:.2f}x realtime; render "
             f"{n_frames / stats['render_s']:.2f} fps; noise banks {stats['bank_bytes'] / 1e6:.1f} MB; peak memory "
-            f"{peak:.2f} GiB; sliding_median launches {b1} (expected {PATCH_B1}); {json_file.name}; "
+            f"{peak:.2f} GiB; sliding_median launches {b1} (expected {PATCH_B1}); noise_tree launches {n1}, trees {n_trees}, opaque leaves {n_opaque}; "
+            f"{json_file.name}; "
             f"frame crc[0] {sink.crcs[0]:08x}")
         if downscale == 4:
-            counts = {"sliding_median": b1}
+            counts = {"sliding_median": b1, "noise_tree": n1}
             log(f"[patch] noise trees alone (warm-up) are {trees_s / stats['render_s']:.3f} of this render")
     return counts
 

@@ -32,7 +32,7 @@ constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 template <typename Kernel> inline cudaError_t cudaFuncSetAttribute(Kernel, int, int) { return cudaSuccess; }
 
 struct EmulatedIndex { unsigned x, y, z; };
-inline thread_local EmulatedIndex threadIdx, blockIdx, blockDim;
+inline thread_local EmulatedIndex threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* emulated_block_barrier = nullptr;
 inline void __syncthreads() { emulated_block_barrier->arrive_and_wait(); }
 // One barrier per warp: every lane of the warp must reach __syncwarp, as the
@@ -104,6 +104,7 @@ inline __half __float2half_rn(float f) {
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __expf(float x) { return std::exp(x); }
 inline void __sincosf(float x, float* s, float* c) { *s = std::sin(x); *c = std::cos(x); }
 
@@ -130,7 +131,10 @@ void emulate_launch(unsigned blocks, unsigned threads, Body body) {
     emulated_warp_barriers = &warp_barriers;
     std::vector<std::thread> pool;
     for (unsigned t = 0; t < threads; ++t)
-      pool.emplace_back([=] { threadIdx = {t, 0, 0}; blockIdx = {b, 0, 0}; blockDim = {threads, 1, 1}; body(); });
+      pool.emplace_back([=] {
+        threadIdx = {t, 0, 0}; blockIdx = {b, 0, 0}; blockDim = {threads, 1, 1}; gridDim = {blocks, 1, 1};
+        body();
+      });
     for (auto& th : pool) th.join();
   }
 }

@@ -5,8 +5,9 @@ information (``mir.py``) -> seeded ``Patch`` -> StyleGAN2 palette -> render
 in chunks with the noise trees evaluated lazily per chunk -> video.  Chunks
 overlap at the end instead of going ragged; frames are packed to I420 on the
 device where the size allows it; one chunk is in flight on the card while
-the host writes the previous one.  The noise trees run eagerly, chunk by
-chunk (the JAX package traces them with synthesis into one program).
+the host writes the previous one.  On a card each layer's tree is one
+kernel pair a chunk (``ops/noise_tree_cuda.py``; the JAX package traces the
+trees with synthesis into one program).
 
 ``--smoke`` renders a short clip of synthetic audio with a random 64 px
 generator, so the whole path runs without any assets.

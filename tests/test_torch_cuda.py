@@ -29,7 +29,10 @@ CUDA modulation (fault C5).  The multi-rank helpers at world size 1 on an
 NCCL group: ``shard_batch`` and ``replicate`` are identities and
 ``synthesize_tp`` on a (1, 1) mesh equals ``synthesis`` (torch.equal);
 ``resolve_device`` under ``torchrun``'s ``LOCAL_RANK``.  The record
-corpus's ``make_targets`` on a 4 s track launches B1 exactly 8 times.
+corpus's ``make_targets`` on a 4 s track launches B1 exactly 8 times.  The
+noise-tree kernel pair on a seeded patch's 17 trees at 1024 px within 1e-5
+of each window's largest magnitude of the eager tree (the affine form adds
+in another order), bit for bit between two calls, 2 launches a tree.
 """
 import pytest
 import torch
@@ -751,3 +754,50 @@ def test_make_targets_on_the_card_launches_b1_eight_times(cuda_device):
     T = 4 * FPS
     assert latents.shape == (T, 18, 512) and [n.shape for n in noises] == [(T, s, s) for s in (4, 8, 16, 32)]
     assert all(bool(torch.isfinite(torch.as_tensor(a)).all()) for a in [latents, *noises])
+
+
+def _fake_music_information(T: int, device, seed: int = 0):
+    """Features of the music information's widths (chromagram 12, tonnetz 6,
+    mfcc 20, spectral contrast 7, four unit envelopes) and segmentations at
+    every k the patch draws from, on `device`."""
+    from ssar_tpu_torch.generate.mir import ALLFEATS, UNITFEATS
+
+    g = torch.Generator().manual_seed(seed)
+    widths = {"chromagram": 12, "tonnetz": 6, "mfcc": 20, "spectral_contrast": 7, **{n: 1 for n in UNITFEATS}}
+    feats = {n: torch.rand(T, widths[n], generator=g).to(device) for n in ALLFEATS}
+    segs = {(n, k): torch.randint(0, k, (T,), generator=g).to(device) for n in ALLFEATS for k in (2, 4, 6, 8, 12, 16)}
+    return feats, segs
+
+
+@pytest.mark.cuda
+def test_noise_tree_kernel_matches_the_eager_tree_at_1024(cuda_device):
+    """A seeded patch's 17 noise trees at 1024 px (b = 16; windows at the
+    start, the middle and a start clamped at the track's end): the kernel
+    pair within 1e-5 of each window's largest magnitude of the eager tree on
+    the card (the affine form adds in another order), the same bits on a
+    second call, 2 launches a layer call, no opaque leaf."""
+    from ssar_tpu_torch.generate import keys
+    from ssar_tpu_torch.generate import noise as N
+    from ssar_tpu_torch.generate.patch import Patch
+    from ssar_tpu_torch.ops import noise_tree_cuda
+
+    T, b = 240, 16
+    feats, segs = _fake_music_information(T, cuda_device)
+    palette = keys.normal(keys.PRNGKey(7), (180, 18, 512), device=cuda_device)
+    with torch.no_grad():
+        _, noise = Patch(feats, segs, 120.0, fps=24, seed=2300000027).forward(palette)
+    assert len(noise) == 17 and noise[-1].size == (1024, 1024)
+    opaque = noise_tree_cuda.opaque_leaves
+    for i in (0, 113, T - 5):
+        for layer, tree in enumerate(noise):
+            launches = noise_tree_cuda.launches
+            got = tree(i, b)
+            assert noise_tree_cuda.launches - launches == 2
+            again = tree(i, b)
+            want = N.eager(tree, i, b)
+            assert got.shape == want.shape == (b, *tree.size) and got.dtype == torch.float32
+            gap = float((got - want).abs().max() / want.abs().max())
+            assert gap <= 1e-5, (i, layer, gap)
+            assert torch.equal(got, again), (i, layer)
+    assert noise_tree_cuda.opaque_leaves == opaque
+    assert isinstance(noise[-1]._plan, noise_tree_cuda.Plan)
