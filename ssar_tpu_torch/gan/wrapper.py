@@ -8,7 +8,10 @@ Counterpart of ``ssar_tpu/gan/wrapper.py``:
   keywords) -> frames, with network bends (``set_bends``);
 - ``StyleGAN2``: both on one set of weights, ``get_w_latents`` and the
   streaming ``render``;
-- ``make_noise_pyramid``: a base noise video resized to every layer's size.
+- ``make_noise_pyramid``: a base noise video resized to every layer's size;
+- ``StyleGAN3Synthesizer``: the same call for StyleGAN3-T
+  (``stylegan3.py``), which takes no noise and no bends;
+  ``synthesizer_for`` builds the synthesizer of a configuration's family.
 
 ``model_file`` is a rosinality ``.pt``, an NVIDIA ``.pkl``, an ``.npz`` of
 the JAX package's layout, or ``None`` (random weights from ``seed``).  Every
@@ -24,6 +27,7 @@ import torch
 from ..ops.resize import resize
 from ..utils.device import resolve_device
 from . import stylegan2 as sg
+from . import stylegan3 as sg3
 from .convert import load_npz, load_nvidia_pkl, load_rosinality_pt
 from .render import _pad_batch
 
@@ -205,3 +209,53 @@ def make_noise_pyramid(noise, layers: int | None = None, config: sg.StyleGAN2Con
         n = resize(noise, (noise.shape[0], noise.shape[1], h, w))
         out.append(n / (n.std(unbiased=False) + 1e-8))
     return out
+
+
+class StyleGAN3Synthesizer:
+    """W+ latents (B, n_latent, 512) -> frames (B, H, W, 3) in [-1, 1]
+    (unclamped) through StyleGAN3-T's synthesis, with ``StyleGAN2Synthesizer``'s
+    call.  The network has no noise inputs (``n_noises_used`` is 0; noise
+    passed in raises) and takes no bends.  It always synthesises at its
+    native resolution; another ``output_size`` (W, H) is a bilinear resize.
+    `dtype` is the precision of the layers the network marks half precision
+    (float16 as published on the card; float32 on the CPU, as the source).
+    """
+
+    def __init__(self, model_file: str | None = None, inference: bool = False,
+                 output_size: tuple[int, int] | None = None, strategy: str = "stretch", layer: int = 0,
+                 config: sg3.StyleGAN3Config | None = None, seed: int = 0, dtype=None,
+                 device: str | torch.device | None = None, params: dict | None = None):
+        self.device = resolve_device(device)
+        self.config = config or sg3.StyleGAN3Config()
+        if params is None and model_file is not None:
+            raise NotImplementedError(f"StyleGAN3 checkpoints do not load yet ({model_file}): pass params or None")
+        self.params = params if params is not None else sg3.init_generator(
+            self.config, torch.Generator().manual_seed(seed), device=self.device)
+        self.dtype = dtype or (torch.float16 if self.device.type == "cuda" else torch.float32)
+        self.output_size = None if output_size is None else (int(output_size[0]), int(output_size[1]))
+        self.bend_mods: dict = {}
+        self.prep = sg3.prepare_synthesis(self.params, self.config, self.dtype, self.device)
+
+    n_noises_used = 0
+
+    def set_bends(self, bends) -> None:
+        if bends:
+            raise ValueError("StyleGAN3Synthesizer takes no network bends")
+
+    @torch.no_grad()
+    def __call__(self, latents, noises: list | None = None, frame_idx=None, **noise_kwargs) -> torch.Tensor:
+        if noise_kwargs or any(n is not None for n in (noises or [])):
+            raise ValueError("StyleGAN3 has no noise inputs")
+        latents = torch.as_tensor(latents, dtype=torch.float32).to(self.device)
+        img = sg3.synthesis(self.params, latents, self.config, self.prep).permute(0, 2, 3, 1)
+        if self.output_size is not None and tuple(img.shape[1:3]) != self.output_size[::-1]:
+            w, h = self.output_size
+            img = resize(img, (img.shape[0], h, w, 3))
+        return img
+
+
+def synthesizer_for(config, **kw):
+    """The synthesizer of `config`'s family: ``StyleGAN3Synthesizer`` for a
+    ``StyleGAN3Config``, else ``StyleGAN2Synthesizer``."""
+    cls = StyleGAN3Synthesizer if isinstance(config, sg3.StyleGAN3Config) else StyleGAN2Synthesizer
+    return cls(config=config, **kw)

@@ -14,7 +14,7 @@ import torch
 
 from ..audio.features import audio2features
 from ..gan.render import render_latents_to_video
-from ..gan.wrapper import StyleGAN2Mapper, StyleGAN2Synthesizer
+from ..gan.wrapper import StyleGAN2Mapper, StyleGAN2Synthesizer, synthesizer_for
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 
@@ -49,7 +49,11 @@ def render_reaction(latents: torch.Tensor, noise: list, out_file: str | None = N
                     duration: float | None = None, seed: int | None = None, residual: bool = False,
                     gan_config=None, synthesizer: StyleGAN2Synthesizer | None = None, writer=None):
     """A reactor's latents and noise pyramid -> frames through `writer` (or an
-    mp4 at `out_file`), on the latents' device.  Returns the writer."""
+    mp4 at `out_file`), on the latents' device.  Returns the writer.
+
+    The synthesizer is of `gan_config`'s family (StyleGAN2 unless it is a
+    ``StyleGAN3Config``; `residual` maps with StyleGAN2's mapper).  An empty
+    (or None) `noise` renders without noise inputs."""
     device = latents.device
     if residual:
         mapper = StyleGAN2Mapper(model_file=model_file, config=gan_config, device=device)
@@ -57,12 +61,11 @@ def render_reaction(latents: torch.Tensor, noise: list, out_file: str | None = N
         latents = latents + mapper(z)[0]
 
     if synthesizer is None:
-        synthesizer = StyleGAN2Synthesizer(model_file=model_file, output_size=output_size,
-                                           config=gan_config, device=device)
-    dup = duplicate_pyramid(noise)[: synthesizer.n_noises_used]
+        synthesizer = synthesizer_for(gan_config, model_file=model_file, output_size=output_size, device=device)
     start = int(fps * offset)
     end = int(fps * (offset + duration)) if duration is not None else latents.shape[0]
-    return render_latents_to_video(synthesizer, latents[start:end], [n[start:end] for n in dup], out_file,
+    dup = [n[start:end] for n in duplicate_pyramid(noise)[: synthesizer.n_noises_used]] if noise else None
+    return render_latents_to_video(synthesizer, latents[start:end], dup, out_file,
                                    fps=fps, output_size=output_size, batch_size=batch_size,
                                    audio_file=audio_file, audio_offset=offset, audio_duration=duration,
                                    writer=writer)

@@ -84,7 +84,8 @@ class FixedLatentNoiseDecoder(nn.Module):
     """Envelopes -> convex-ish mixes of a frozen W+ palette, plus noise maps.
 
     latents: (S*H, n_ws, 512) palette; envelopes (B, T, S*H + 2*n_noise).
-    Each of the S splits mixes its H palette rows over its n_ws/S W+ rows;
+    Each of the S splits mixes its H palette rows over its n_ws/S W+ rows
+    (S must divide n_ws: 3 for StyleGAN2's 18 rows, 4 for StyleGAN3's 16);
     the trailing 2*n_noise envelopes are (mu, sigma) pairs scaling smoothed
     noise at 4x4 .. 32x32.  ``env_guard_eps`` > 0 clamps |sum| of each
     split's envelopes away from zero, keeping its sign (0 = the reference's
@@ -99,6 +100,8 @@ class FixedLatentNoiseDecoder(nn.Module):
         self.env_guard_eps = env_guard_eps
         if self.latents.shape[0] != n_latent_split * hidden_size:
             raise ValueError(f"palette has {self.latents.shape[0]} rows, expected {n_latent_split * hidden_size}")
+        if self.latents.shape[1] % n_latent_split:
+            raise ValueError(f"{self.latents.shape[1]} W+ rows do not split into {n_latent_split} equal parts")
 
     def forward(self, x, base_noise: list | None = None, generator: torch.Generator | None = None):
         S, H = self.n_latent_split, self.hidden_size
