@@ -41,6 +41,14 @@ Phases (any failure exits non-zero and prints no result line):
      clamped last windows, two calls bit-identical, 2 launches a tree, no
      opaque leaf; one chunk's 17 trees timed by kernel and by eager tree
      beside the bound (banks read once, windows written once);
+  3f. kernel check: StyleGAN3's filtered leaky ReLU (F1) at each of the 15
+     layers' 1024 px sizes and channels, batch 16, in the layer's dtype,
+     against the plain op on the card in float32 on the same values (F1 in
+     float32 too), two calls bit-identical, one launch a call; its time
+     (CUDA events) beside the plain op's (in the layer's dtype) and its two bounds
+     (the input read and the output written once at 3.35 TB/s; the
+     separable polyphase multiply-adds at 67 TFLOP/s); then one StyleGAN3-T
+     synthesis of 16 frames at 1024 px, 15 launches exactly, timed;
   3c. kernel check: the sliding median's backward (B1 bwd) against its plain
      version (torch.equal) at the HPSS and long-form chunk shapes on both
      axes, the optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and
@@ -579,6 +587,8 @@ def main():
     vdm_rows, vdm_err, vdm_bwd_err = check_vandermonde(dev)
     # --------------------------------------------------------------- 3e --
     noise_row, noise_err = check_noise_tree(dev)
+    # --------------------------------------------------------------- 3f --
+    flr_row, flr_err = check_filtered_lrelu(dev)
 
     # ---------------------------------------------------------------- 4 --
     sr_in = 44100
@@ -801,6 +811,12 @@ def main():
         "replaces": None, "launches": patch_counts["noise_tree"], "max_abs_err": noise_err,
         # one 16-frame chunk's 17 trees at 1024 px
         **noise_row, "library_ms": None,
+    }, {
+        "name": "filtered_lrelu", "route": "cuda", "source": "ssar_tpu_torch/csrc/filtered_lrelu.cu",
+        # no TPU kernel: the JAX package has no StyleGAN3
+        "replaces": None, "launches": flr_row.pop("launches"), "max_abs_err": flr_err,
+        # the 15 layers of a 16-frame StyleGAN3-T batch at 1024 px
+        **flr_row, "library_ms": None,
     }]
     log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1455,6 +1471,97 @@ def check_noise_tree(dev) -> tuple[dict, float]:
         f"{row['enqueue_ms']:.3f} ms (eager {row['plain_enqueue_ms']:.3f}); call {row['call_ms']:.3f} ms (eager "
         f"{row['plain_call_ms']:.3f}); (nodes, planes, loops) a layer {sizes}")
     return row, max_err
+
+
+SG3_BATCH = 16   # the StyleGAN3 cell's render batch
+
+
+def check_filtered_lrelu(dev) -> tuple[dict, float]:
+    """Phase 3f: F1 (``csrc/filtered_lrelu.cu``) at each StyleGAN3-T layer's
+    1024 px size and channels, batch 16, input 8 N(0, 1) in the layer's
+    dtype and bias N(0, 1): within 1e-5 (float32 layers) or 1e-3 (float16:
+    F1 rounds its output to float16 once) of the largest magnitude of the
+    plain op run on the card in float32 without TF32 on the same values; F1
+    in float32 on them within 1e-5; two calls bit-identical, one launch a
+    call.  Its time (CUDA events around a call, the median: by this phase
+    the profiler can lose every event) beside the plain op's in the layer's
+    dtype and the two bounds: input and output once at 3.35 TB/s, and the
+    separable polyphase multiply-adds the benchmark counts
+    (``port_bench/sg3_counts.py:filter_flops``) at 67 TFLOP/s.  Then one
+    synthesis of 16 frames at 1024 px (random weights): 15 launches, one a
+    layer, and its synchronised time."""
+    import dataclasses
+
+    from port_bench.sg3_counts import filter_flops
+    from ssar_tpu_torch.gan import stylegan3 as sg3
+    from ssar_tpu_torch.ops import filtered_lrelu as flr
+    from ssar_tpu_torch.utils.device import full_precision
+
+    t0 = time.perf_counter()
+    config = sg3.StyleGAN3Config()
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows, max_err = [], 0.0
+    with torch.no_grad(), full_precision():
+        for spec in config.schedule():
+            fu, fd = config.filters(spec)
+            gain, slope = (1.0, 1.0) if spec.is_torgb else (2 ** 0.5, 0.2)
+            dtype = torch.float16 if spec.use_fp16 else torch.float32
+            args = (fu, fd, spec.up, spec.down, spec.padding, gain, slope, config.conv_clamp, spec.out_channels, dev)
+            op, op32 = flr.FilteredLReLU(*args, dtype=dtype), flr.FilteredLReLU(*args, dtype=torch.float32)
+            n = spec.in_size + spec.conv_kernel - 1
+            x = (8 * torch.randn((SG3_BATCH, spec.out_channels, n, n), generator=g, device=dev)).to(dtype)
+            b = torch.randn((spec.out_channels,), generator=g, device=dev)
+            before = flr.launches
+            got, again = op(x, b), op(x, b)
+            if flr.launches != before + 2:
+                fail(f"filtered_lrelu layer {spec.index}: {flr.launches - before} launches for two calls, expected 2")
+            if not torch.equal(got, again):
+                fail(f"filtered_lrelu layer {spec.index}: two calls differ")
+            want = op32.plain(x.float(), b)
+            scale = float(want.abs().max())
+            err = float((got.float() - want).abs().max()) / scale
+            err32 = float((op32(x.float(), b) - want).abs().max()) / scale
+            del want
+            torch.cuda.synchronize()
+            if not (err <= (1e-3 if spec.use_fp16 else 1e-5) and err32 <= 1e-5):
+                fail(f"filtered_lrelu layer {spec.index}: {err:.3g} ({dtype}) and {err32:.3g} (float32) of the "
+                     f"plain op's largest magnitude")
+            max_err = max(max_err, err)
+            row = {"layer": spec.index, "shape": list(x.shape), "out": list(got.shape), "dtype": str(dtype),
+                   "err": err, "err32": err32,
+                   "ms": cuda_ms(lambda: op(x, b), runs=10),
+                   "plain_ms": cuda_ms(lambda: op.plain(x, b), runs=5),
+                   "bytes_bound_ms": (x.numel() + got.numel()) * x.element_size() / HBM_BYTES_PER_S * 1e3,
+                   "fma_bound_ms": SG3_BATCH * filter_flops(dataclasses.asdict(spec)) / FP32_PEAK_OPS * 1e3}
+            rows.append(row)
+            log(f"[kernel] filtered_lrelu layer {spec.index} {tuple(x.shape)} -> {tuple(got.shape)} {dtype}: device "
+                f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}); bounds: bytes {row['bytes_bound_ms']:.3f} ms "
+                f"({row['bytes_bound_ms'] / row['ms']:.1%}), FMAs {row['fma_bound_ms']:.3f} ms "
+                f"({row['fma_bound_ms'] / row['ms']:.1%}); error {err:.3g} (float32 F1 {err32:.3g})")
+            del x, got, again
+        params = sg3._to(sg3.init_generator(config, torch.Generator().manual_seed(SEED)), dev)
+        prep = sg3.prepare_synthesis(params, config)
+        ws = torch.randn((SG3_BATCH, config.n_latent, config.w_dim), generator=g, device=dev)
+        sg3.synthesis(params, ws, config, prep)
+        torch.cuda.synchronize()
+        before = (flr.calls, flr.launches)
+        img = sg3.synthesis(params, ws, config, prep)
+        torch.cuda.synchronize()
+        launches = flr.launches - before[1]
+        if (flr.calls - before[0], launches) != (15, 15) or not bool(torch.isfinite(img).all()):
+            fail(f"StyleGAN3-T synthesis: {flr.calls - before[0]} filter calls, {launches} F1 launches, expected 15 "
+                 f"and 15 (finite: {bool(torch.isfinite(img).all())})")
+        synthesis_ms = cuda_ms(lambda: sg3.synthesis(params, ws, config, prep), runs=5)
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bytes_bound_ms", "fma_bound_ms")}
+    log(f"[kernel] filtered_lrelu: 15 layers of a {SG3_BATCH}-frame batch at 1024 px: device {total['ms']:.2f} ms "
+        f"(plain {total['plain_ms']:.2f}); bounds: bytes {total['bytes_bound_ms']:.2f} ms, FMAs "
+        f"{total['fma_bound_ms']:.2f} ms ({total['fma_bound_ms'] / total['ms']:.1%}); largest error {max_err:.3g}; "
+        f"one synthesis of {SG3_BATCH} frames {synthesis_ms:.1f} ms, {launches} launches; phase 3f took "
+        f"{time.perf_counter() - t0:.1f} s")
+    bound_by = "operations" if total["fma_bound_ms"] >= total["bytes_bound_ms"] else "bytes"
+    return {"ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": max(total["fma_bound_ms"], total["bytes_bound_ms"]), "bound_by": bound_by,
+            "synthesis_ms": synthesis_ms, "launches": launches, "layers": rows}, max_err
 
 
 def vandermonde_f64(args, L: int, g: torch.Tensor):
@@ -3315,13 +3422,14 @@ def reference_study(dev):
     G_cpu, G_card = small_g(torch.device("cpu"), weights), small_g(dev, _to(weights, dev))
     music = mir.retrieve_music_information(audio, sr, device="cpu")
     torch.manual_seed(SEED)
-    palette = np.random.RandomState(SEED).randn(3 * 8, cfg.n_latent, 512).astype(np.float32)
+    # the 64 px G has 10 W+ rows, so the fixed decoder mixes its palette in two splits of 5 rows
+    palette = np.random.RandomState(SEED).randn(2 * 8, cfg.n_latent, 512).astype(np.float32)
     # the fixed decoder divides each split's envelopes by their sum, which magnifies round-off near a sum of 0
     # (ROADMAP C): the guard keeps |sum| >= 0.1 and the palette envelopes' biases are lifted, as the CPU tests do
     reactor = LatentNoiseReactor(np.zeros(59), np.ones(59), palette, backbone="sashimi", hidden_size=8, num_layers=2,
-                                 env_guard_eps=0.1)
+                                 n_latent_split=2, env_guard_eps=0.1)
     with torch.no_grad():
-        reactor.envelopes.out.bias[: 3 * 8] += 1.0
+        reactor.envelopes.out.bias[: 2 * 8] += 1.0
     rs = np.random.RandomState(SEED + 11)
     base = [rs.randn(1, T, 2 ** (i + 2), 2 ** (i + 2)).astype(np.float32) for i in range(4)]
     opt_init = rs.rand(T, 27 + 10).astype(np.float32)
@@ -3329,7 +3437,7 @@ def reference_study(dev):
 
     def predictors(G, device):
         model = LatentNoiseReactor(np.zeros(59), np.ones(59), palette, backbone="sashimi", hidden_size=8,
-                                   num_layers=2, env_guard_eps=0.1)
+                                   num_layers=2, n_latent_split=2, env_guard_eps=0.1)
         model.load_state_dict(reactor.state_dict())
         model = model.to(device)
         fixed_base = [torch.as_tensor(b, device=device) for b in base]

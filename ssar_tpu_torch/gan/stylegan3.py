@@ -266,8 +266,8 @@ def synthesis_layer(p: dict, prep: dict, spec: LayerSpec, x: torch.Tensor, w: to
     if not spec.is_torgb:
         demod = torch.rsqrt(styles.square() @ prep["w2"].T + 1e-8)
         out = out * demod.to(dtype)[:, :, None, None]
-    with span("synthesis.sg3.filter"):
-        return prep["filter"](out, p["bias"])
+    with span("synthesis.sg3.filter"):   # F1 takes a contiguous input (the first layer's conv gives channels-last)
+        return prep["filter"](out.contiguous(), p["bias"])
 
 
 def synthesis(params: dict, latents: torch.Tensor, config: StyleGAN3Config, prep: dict) -> torch.Tensor:

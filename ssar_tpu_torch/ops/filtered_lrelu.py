@@ -20,28 +20,90 @@ down-filter along H (and the clamp's bound divided by it).
 
 The filters are designed once on the host (``design_lowpass_filter``, scipy's
 ``firwin``); a ``FilteredLReLU`` (one a layer) builds their matrices for an
-input size once and keeps them on the device.
+input size once and keeps them.
 
-Counters: ``calls`` (ops applied) and ``least_bytes`` (each call's input read
+On a CUDA tensor the op is kernel F1 (``csrc/filtered_lrelu.cu``), one launch
+a call.  F1 replaces no TPU kernel (the JAX package has no StyleGAN3); it was
+added because the banded products wrote the upsampled grid to device memory
+and read it back about four times, 60-74 % of the StyleGAN3 cell's device
+time at ~2 % of the op's byte bound.  A block takes a tile of output pixels
+of one (sample, channel) plane, stages the input tile and its halo in shared
+memory with the bias added and upsamples it along W by the taps of each
+phase alone; a thread then takes a column, upsamples it along H, applies
+the leaky ReLU and the clamp and filters it along H, the upsampled samples
+streaming through registers into the kept rows; the kept samples along W
+follow, and the tile is written once.  The upsampled grid never reaches
+device memory, so F1 is bound by float32 FMAs and shared memory, not by
+HBM.  It takes the three classes (up, down, taps of fu, taps of fd) of
+StyleGAN3's schedule, (2, 2, 12, 12), (4, 2, 24, 12) and ToRGB's (1, 1, 1,
+1), a slope in [0, 1], float16 (arithmetic in float32) or float32, no
+gradient, and raises on anything else.  Its taps are the plain version's
+matrix entries in float32, built once a layer (``launch_taps``) and passed
+as the launch's parameters.  The banded products run for CPU tensors only:
+they are the plain version, which the CPU tests use and the card tests hold
+F1 to.
+
+Counters: ``calls`` (ops applied), ``least_bytes`` (each call's input read
 once and its output written once, at the call's dtype: the least that any
-implementation of the op moves).
+implementation of the op moves) and ``launches`` (F1 launches; on a card
+every call is one).
 """
 from __future__ import annotations
+
+import ctypes
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 calls = 0
 least_bytes = 0
+launches = 0
 
 INDEX_LIMIT = 2**31 - 1
 TILE = 256          # outputs a block of a banded filter matrix
 
 
+# F1's classes: (up, down, taps of fu, taps of fd)
+CLASSES = ((2, 2, 12, 12), (4, 2, 24, 12), (1, 1, 1, 1))
+
+_fn = None   # the library's ssar_filtered_lrelu, once bound
+
+
 def reset_counters() -> None:
-    global calls, least_bytes
-    calls = least_bytes = 0
+    global calls, least_bytes, launches
+    calls = least_bytes = launches = 0
+
+
+class Taps(ctypes.Structure):
+    """csrc/filtered_lrelu.cu's FlrTaps: the up-filter flipped and times up,
+    the down-filter flipped (along W) and flipped and times the gain (along H),
+    in float32, as the plain version's matrices hold them."""
+
+    _fields_ = [("up", ctypes.c_float * 24), ("down_w", ctypes.c_float * 12), ("down_h", ctypes.c_float * 12)]
+
+
+def bind(lib: ctypes.CDLL):
+    """The library's entry point with its argument types, after checking that
+    the binding's ``Taps`` has the size the source gives FlrTaps."""
+    size = lib.ssar_filtered_lrelu_taps_size()
+    if size != ctypes.sizeof(Taps):
+        raise RuntimeError(f"filtered_lrelu.cu's taps are {size} bytes, the binding's {ctypes.sizeof(Taps)}")
+    fn = lib.ssar_filtered_lrelu
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7 \
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _card_entry(device: torch.device):
+    global _fn
+    if _fn is None:
+        _fn = bind(_build.load("filtered_lrelu"))
+    return lambda *args: _build.launch(_fn, device, *args)
 
 
 def design_lowpass_filter(numtaps: int, cutoff: float, width: float, fs: float) -> np.ndarray | None:
@@ -118,11 +180,13 @@ class FilteredLReLU:
 
     `fu`, `fd`: 1-D filters (numpy) or None; `padding` (px0, px1, py0, py1)
     on the upsampled grid, as the reference's; `channels` of the input.
-    Each axis's up- and down-filter is a banded matrix of its taps
-    (``up_matrix``, ``down_matrix``), cut into blocks of ``TILE`` outputs with
-    the span of inputs each reaches (``band_tiles``), built on the host for
-    an input size at its first call and kept on the device; the op is then
-    four products a block, the leaky ReLU and the clamp."""
+    On a CUDA tensor a call is one launch of F1 with the layer's taps
+    (``taps``, built here for F1's classes).  On a CPU tensor each axis's up-
+    and down-filter is a banded matrix of its taps (``up_matrix``,
+    ``down_matrix``), cut into blocks of ``TILE`` outputs with the span of
+    inputs each reaches (``band_tiles``), built for an input size at its
+    first call and kept; the op is then four products a block, the leaky
+    ReLU and the clamp."""
 
     def __init__(self, fu, fd, up: int, down: int, padding, gain: float, slope: float, clamp: float | None,
                  channels: int, device=None, dtype=torch.float32):
@@ -136,6 +200,16 @@ class FilteredLReLU:
         self.bound = None if clamp is None else float(clamp) / self.gain
         self.identity = self.ku == self.kd == self.up == self.down == 1 and not any(self.padding)
         self._mats: dict = {}
+        self.taps = launch_taps(fu, fd, self.up, self.gain) if (up, down, self.ku, self.kd) in CLASSES else None
+
+    def out_size(self, h: int, w: int) -> tuple[int, int]:
+        """The output's (height, width) for an (h, w) input."""
+        px0, px1, py0, py1 = self.padding
+
+        def kept(n, p0, p1):
+            return -(-(n * self.up + p0 + p1 - self.ku + 1 - self.kd + 1) // self.down)
+
+        return kept(h, py0, py1), kept(w, px0, px1)
 
     def matrices(self, h: int, w: int) -> tuple:
         """The tiles of the up-filter along H and along W and of the
@@ -157,21 +231,62 @@ class FilteredLReLU:
 
     def __call__(self, x: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
         global calls, least_bytes
+        y = self.launch(x, b, _card_entry(x.device)) if x.device.type == "cuda" else self.plain(x, b)
+        calls += 1
+        least_bytes += (x.numel() + y.numel()) * x.element_size()
+        return y
+
+    def plain(self, x: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+        """The op as banded products (the CPU path and F1's reference)."""
         if b is not None:
             x = x + b.to(x.dtype)[:, None, None]
         if self.identity:
             y = self._act(x.clone() if b is None else x)
             if self.gain != 1.0:
                 y.mul_(self.gain)
-        else:
-            (uh, lh), (uw, lw), (dh, mh), (dw, mw) = self.matrices(*x.shape[-2:])
-            # frames in groups of under 2**31 upsampled values: 32-bit sizes stay safe, temporaries bounded
-            per = max(1, INDEX_LIMIT // (self.channels * lh * lw))
-            parts = [_cols(_rows(dh, mh, self._act(_cols(_rows(uh, lh, x[i:i + per]), uw, lw))), dw, mw)
-                     for i in range(0, x.shape[0], per)]
-            y = parts[0] if len(parts) == 1 else torch.cat(parts)
-        calls += 1
-        least_bytes += (x.numel() + y.numel()) * x.element_size()
+            return y
+        (uh, lh), (uw, lw), (dh, mh), (dw, mw) = self.matrices(*x.shape[-2:])
+        # frames in groups of under 2**31 upsampled values: 32-bit sizes stay safe, temporaries bounded
+        per = max(1, INDEX_LIMIT // (self.channels * lh * lw))
+        parts = [_cols(_rows(dh, mh, self._act(_cols(_rows(uh, lh, x[i:i + per]), uw, lw))), dw, mw)
+                 for i in range(0, x.shape[0], per)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def launch(self, x: torch.Tensor, b: torch.Tensor | None, entry) -> torch.Tensor:
+        """The op by one launch of F1 through ``entry(*args)`` (the library's
+        ``ssar_filtered_lrelu`` with the stream bound), after checking the
+        layer's class and the tensors; the output from ``torch.empty``."""
+        global launches
+        cls = (self.up, self.down, self.ku, self.kd)
+        if cls not in CLASSES or (cls == (1, 1, 1, 1) and any(self.padding)) or not 0.0 <= self.slope <= 1.0:
+            raise ValueError(f"filtered_lrelu: F1 takes (up, down, up taps, down taps) in {CLASSES} (the last "
+                             f"without padding) and a slope in [0, 1], not {cls} with padding {self.padding} and "
+                             f"slope {self.slope}")
+        if x.dtype != self.dtype or x.dtype not in (torch.float16, torch.float32):
+            raise TypeError(f"filtered_lrelu: the input is {x.dtype}; this layer's F1 takes {self.dtype}")
+        if x.ndim != 4 or x.shape[1] != self.channels:
+            raise ValueError(f"filtered_lrelu: the input is {tuple(x.shape)}, not (N, {self.channels}, H, W)")
+        if not x.is_contiguous():
+            raise ValueError("filtered_lrelu: the input is not contiguous")
+        if torch.is_grad_enabled() and (x.requires_grad or (b is not None and b.requires_grad)):
+            raise RuntimeError("filtered_lrelu: F1 has no backward; call it under torch.no_grad()")
+        if b is not None:
+            if b.device != x.device or tuple(b.shape) != (self.channels,):
+                raise ValueError(f"filtered_lrelu: a bias of {tuple(b.shape)} on {b.device} for an input on "
+                                 f"{x.device} with {self.channels} channels")
+            b = b.to(torch.float32).contiguous()
+        n, c, h, w = x.shape
+        oh, ow = self.out_size(h, w)
+        if oh <= 0 or ow <= 0:
+            raise ValueError(f"filtered_lrelu: an input of {h}x{w} gives no output")
+        y = torch.empty((n, c, oh, ow), device=x.device, dtype=x.dtype)
+        px0, _, py0, _ = self.padding
+        err = entry(*cls, int(x.dtype == torch.float16), x.data_ptr(), y.data_ptr(),
+                    None if b is None else b.data_ptr(), ctypes.addressof(self.taps), n * c, c, h, w, oh, ow,
+                    px0, py0, self.slope, math.inf if self.bound is None else self.bound)
+        if err != 0:
+            raise RuntimeError(f"filtered_lrelu launch failed: cudaError {err}")
+        launches += 1
         return y
 
     def _act(self, y: torch.Tensor) -> torch.Tensor:
@@ -181,3 +296,14 @@ class FilteredLReLU:
         if self.bound is not None:
             y.clamp_(-self.bound, self.bound)
         return y
+
+
+def launch_taps(fu, fd, up: int, gain: float) -> Taps:
+    """F1's taps of a layer: the entries of ``up_matrix`` and ``down_matrix``
+    (flipped filters, the up-filter times `up`, the H down-filter times the
+    gain), rounded to float32 from float64 as the plain version rounds them."""
+    taps = Taps()
+    for field, f, scale in (("up", fu, up), ("down_w", fd, 1.0), ("down_h", fd, gain)):
+        h = (np.ones(1) if f is None else np.asarray(f, np.float64)[::-1]) * scale
+        getattr(taps, field)[:len(h)] = [float(v) for v in h.astype(np.float32)]
+    return taps

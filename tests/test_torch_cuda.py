@@ -33,6 +33,11 @@ corpus's ``make_targets`` on a 4 s track launches B1 exactly 8 times.  The
 noise-tree kernel pair on a seeded patch's 17 trees at 1024 px within 1e-5
 of each window's largest magnitude of the eager tree (the affine form adds
 in another order), bit for bit between two calls, 2 launches a tree.
+StyleGAN3's filtered leaky ReLU (F1) at each layer's 1024 px size and
+channels against the plain op on the card in float32 without TF32, within
+1e-5 of the largest magnitude (float32 sums in another order), or 1e-3 in
+the float16 layers (F1 rounds its float32 result to float16 once); a
+synthesis launches F1 once a filter call.
 """
 import pytest
 import torch
@@ -828,3 +833,53 @@ def test_stylegan3_on_the_card_matches_the_cpu_at_64px(cuda_device):
     half = sg3.synthesis(on_card, ws.to(cuda_device), config, sg3.prepare_synthesis(on_card, config))
     assert half.dtype == torch.float32 and dataclasses.asdict(config)["num_fp16_res"] == 4
     assert float((half.cpu() - want).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(15))
+def test_filtered_lrelu_kernel_matches_the_plain_op_at_1024(cuda_device, index):
+    """F1 at the layer's published size and channels, batch 2, in float32
+    and in the layer's own dtype, against the plain op in float32 on the
+    same values; two calls equal, one launch a call."""
+    from ssar_tpu_torch.gan import stylegan3 as sg3
+    from ssar_tpu_torch.ops import filtered_lrelu as flr
+    from ssar_tpu_torch.utils.device import full_precision
+
+    config = sg3.StyleGAN3Config()
+    spec = config.schedule()[index]
+    gain, slope = (1.0, 1.0) if spec.is_torgb else (2 ** 0.5, 0.2)
+    args = (*config.filters(spec), spec.up, spec.down, spec.padding, gain, slope, config.conv_clamp,
+            spec.out_channels, cuda_device)
+    op32 = flr.FilteredLReLU(*args, dtype=torch.float32)
+    n = spec.in_size + spec.conv_kernel - 1
+    g = torch.Generator(device=cuda_device).manual_seed(index)
+    x = 60 * torch.randn((2, spec.out_channels, n, n), generator=g, device=cuda_device)   # some past the clamp
+    b = torch.randn((spec.out_channels,), generator=g, device=cuda_device)
+    dtypes = [torch.float32] + ([torch.float16] if spec.use_fp16 else [])
+    with torch.no_grad(), full_precision():
+        for dtype in dtypes:
+            op = flr.FilteredLReLU(*args, dtype=dtype)
+            xd = x.to(dtype)
+            want = op32.plain(xd.float(), b)
+            before = (flr.calls, flr.launches)
+            got, again = op(xd, b), op(xd, b)
+            assert (flr.calls - before[0], flr.launches - before[1]) == (2, 2)
+            assert got.dtype == dtype and got.shape == want.shape and torch.equal(got, again)
+            tol = 1e-5 if dtype == torch.float32 else 1e-3
+            assert float((got.float() - want).abs().max()) <= tol * float(want.abs().max()), dtype
+
+
+@pytest.mark.cuda
+def test_stylegan3_synthesis_launches_f1_once_a_filter_call(cuda_device):
+    from ssar_tpu_torch.gan import stylegan3 as sg3
+    from ssar_tpu_torch.ops import filtered_lrelu as flr
+
+    config = sg3.StyleGAN3Config(resolution=64, channel_base=512, channel_max=16)
+    params = sg3._to(sg3.init_generator(config, torch.Generator().manual_seed(0)), cuda_device)
+    ws = torch.randn((2, config.n_latent, config.w_dim), device=cuda_device)
+    for half in (torch.float16, None):
+        before = (flr.calls, flr.launches)
+        img = sg3.synthesis(params, ws, config, sg3.prepare_synthesis(params, config, half=half))
+        torch.cuda.synchronize()
+        assert flr.calls - before[0] == flr.launches - before[1] == config.num_layers + 1
+        assert bool(torch.isfinite(img).all())
