@@ -2162,7 +2162,7 @@ def patch_path(dev) -> dict:
     with torch.no_grad():
         latents, noise = Patch(features, segmentations, tempo, fps=FPS, seed=seed).forward(palette, downscale_factor=4)
         noise = noise[4 : 4 + G.synthesizer.n_noises_used]
-        starts = sample.chunk_starts(T, batch)
+        starts = range(0, T, batch)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for s in starts:
@@ -2196,7 +2196,7 @@ def patch_path(dev) -> dict:
         # a tree a layer a chunk, two launches a tree (each has the patch's base Loop), no opaque leaf
         n1, n_trees, n_opaque = (after - before for after, before in zip(
             (noise_tree_cuda.launches, noise_tree_cuda.trees, noise_tree_cuda.opaque_leaves), trees_before))
-        want_trees = len(sample.chunk_starts(n_frames, batch)) * (2 * int(np.log2(side)) - 3)
+        want_trees = len(range(0, n_frames, batch)) * (2 * int(np.log2(side)) - 3)
         if (n1, n_trees, n_opaque) != (2 * want_trees, want_trees, 0):
             fail(f"random-patch path at {side} px: noise-tree launches, trees, opaque leaves {(n1, n_trees, n_opaque)}, "
                  f"expected {(2 * want_trees, want_trees, 0)}")

@@ -3,8 +3,9 @@
 Counterpart of ``ssar_tpu/gan/render.py``.  Frames are synthesised in
 batches, packed to I420 on the device (1.5 bytes per pixel across the
 device-to-host link instead of 3), and double-buffered: on the card, batch
-j + 1 is queued on a side CUDA stream, with its copy into a pinned host
-buffer, while the host hands batch j to the frame writer.
+j + 1 is queued on the caller's CUDA stream, with its copy into a pinned
+host buffer, while the host waits for batch j's copy and hands it to the
+frame writer.  The last batch is padded by repeating the last frame.
 
 Over several ranks (``parallel.mesh.get_mesh``) each padded batch is split
 over the data axis: every rank synthesises its rows, and rank 0 gathers the
@@ -52,11 +53,13 @@ def _pad_batch(x: torch.Tensor, batch_size: int) -> torch.Tensor:
     return x
 
 
+@torch.no_grad()
 def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_file: str | None = None,
                             fps: float = 24, output_size: tuple[int, int] | None = None,
                             batch_size: int = 8, audio_file: str | None = None, audio_offset: float = 0,
                             audio_duration: float | None = None, postprocess_fn: Callable | None = None,
-                            progress: bool = True, transfer: str = "auto", writer=None):
+                            progress: bool = True, transfer: str = "auto", writer=None,
+                            stats: dict | None = None):
     """Render a (T, n_ws, 512) latent sequence (+ per-layer noise, None
     entries allowed) through `writer`.
 
@@ -73,7 +76,9 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
 
     `writer` is a context manager with ``write_i420(frame)`` for (H*3//2, W)
     uint8 frames and ``write(frame)`` for (H, W, 3) uint8 frames; the default
-    is a ``VideoWriter`` on `out_file`.  Returns the writer.
+    is a ``VideoWriter`` on `out_file`.  Returns the writer.  When `stats` is
+    a dict, the loop's seconds (the ``render.loop`` span, the writer's enter
+    to its exit) are added to ``stats["render_s"]``.
 
     Over several ranks every rank calls this with the same arguments; each
     synthesises its rows of a batch (its frames of lazy noises and animated
@@ -138,7 +143,7 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
 
     starts = list(range(0, T, batch_size))
     if not main:
-        with span("render.loop"):
+        with span("render.loop", stats, "render_s"):
             for i in starts:
                 synth(i)
         return writer
@@ -147,27 +152,24 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
                              audio_offset=audio_offset, audio_duration=audio_duration)
     cuda = device.type == "cuda"
     if cuda:
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
+        stream = torch.cuda.current_stream(device)
         host = [None, None]   # pinned buffers, allocated at the first batch's shape
         done = [None, None]
 
     def launch(j):
-        """Queue batch j; on the card, its fetch into pinned host buffer j % 2."""
-        if not cuda:
-            frames = synth(starts[j])
-            with span("render.transfer"):
-                return convert(frames)
-        with torch.cuda.stream(stream):
-            frames = synth(starts[j])
-            with span("render.transfer"):
-                out = convert(frames)
-                slot = j % 2
-                if host[slot] is None:
-                    host[slot] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host[slot].copy_(out, non_blocking=True)
-                done[slot] = torch.cuda.Event()
-                done[slot].record(stream)
+        """Queue batch j on the caller's stream; on the card, its fetch into
+        pinned host buffer j % 2."""
+        frames = synth(starts[j])
+        with span("render.transfer"):
+            out = convert(frames)
+            if not cuda:
+                return out
+            slot = j % 2
+            if host[slot] is None:
+                host[slot] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host[slot].copy_(out, non_blocking=True)
+            done[slot] = torch.cuda.Event()
+            done[slot].record(stream)
         return slot
 
     def fetch(token):
@@ -186,7 +188,7 @@ def render_latents_to_video(synthesizer, latents, noises: Sequence | None, out_f
         except ImportError:
             pass
 
-    with span("render.loop"), writer as video:
+    with span("render.loop", stats, "render_s"), writer as video:
         pending = launch(0) if starts else None
         for j in batches:
             nxt = launch(j + 1) if j + 1 < len(starts) else None

@@ -2,12 +2,10 @@
 
 Counterpart of ``ssar_tpu/generate/sample.py``: load audio -> music
 information (``mir.py``) -> seeded ``Patch`` -> StyleGAN2 palette -> render
-in chunks with the noise trees evaluated lazily per chunk -> video.  Chunks
-overlap at the end instead of going ragged; frames are packed to I420 on the
-device where the size allows it; one chunk is in flight on the card while
-the host writes the previous one.  On a card each layer's tree is one
-kernel pair a chunk (``ops/noise_tree_cuda.py``; the JAX package traces the
-trees with synthesis into one program).
+through ``gan/render.py:render_latents_to_video``, the reactor's loop, with
+the noise trees evaluated lazily a batch at a time -> video.  On a card each
+layer's tree is one kernel pair a batch (``ops/noise_tree_cuda.py``; the JAX
+package traces the trees with synthesis into one program).
 
 ``--smoke`` renders a short clip of synthetic audio with a random 64 px
 generator, so the whole path runs without any assets.
@@ -20,9 +18,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..gan.render import rgb_to_i420
+from ..gan.render import render_latents_to_video
 from ..gan.stylegan2 import StyleGAN2Config
-from ..gan.video_io import VideoWriter
 from ..gan.wrapper import StyleGAN2
 from ..ops.resample import resample
 from ..train.data import load_audio as load_audio_file
@@ -45,17 +42,6 @@ def load_audio(audio_file: str, offset: float, duration: float | None, fps: floa
         audio = resample(torch.as_tensor(np.asarray(audio, np.float32)).to(device or "cpu"), int(sr), new_sr,
                          lowpass_filter_width=6)
     return audio.cpu().numpy(), new_sr
-
-
-def chunk_starts(T: int, bs: int) -> list[int]:
-    """Chunk starts of `bs` frames over T frames; the last chunk overlaps
-    the one before it instead of going ragged (none when T == 0)."""
-    if T == 0:
-        return []
-    starts = list(range(0, T - bs + 1, bs))
-    if starts and starts[-1] != T - bs:
-        starts.append(T - bs)
-    return starts
 
 
 def generate(audio_file: str | None = None, patch_file: str | None = None, seed: int | None = None,
@@ -128,62 +114,13 @@ def generate(audio_file: str | None = None, patch_file: str | None = None, seed:
 
     print("rendering...")
     T = latents.shape[0]
-    bs = min(batch_size, T)
-    i420 = out_size[1] % 4 == 0 and out_size[0] % 2 == 0
-    cuda = device.type == "cuda"
-    pinned: list = [None, None]
-
-    @torch.no_grad()
-    def launch(j: int, s: int):
-        """Queue chunk j; on the card, its copy into pinned buffer j % 2."""
-        with span("render.noise"):
-            ns = [nm(s, bs)[..., None] for nm in noise]   # (bs, H, W, 1)
-        with span("render.synthesis"):
-            frames = G.synthesizer(latents[s : s + bs], noises=ns)
-        with span("render.transfer"):
-            frames = torch.clamp((frames + 1) / 2, 0, 1)
-            if i420 and tuple(frames.shape[1:3]) == (out_size[1], out_size[0]):
-                out = rgb_to_i420(frames)
-            else:
-                out = (frames * 255.0 + 0.5).to(torch.uint8)
-            if not cuda:
-                return out.numpy()
-            if pinned[j % 2] is None:
-                pinned[j % 2] = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            pinned[j % 2].copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        return pinned[j % 2], done
-
-    def fetch(token) -> np.ndarray:
-        with span("render.wait"):
-            if not cuda:
-                return token
-            host, done = token
-            done.synchronize()
-            return host.numpy()
-
-    starts = chunk_starts(T, bs)
     Path(out_file).parent.mkdir(parents=True, exist_ok=True)
     patch.save(out_file.replace(".mp4", ".json"))
-    if writer is None:
-        writer = VideoWriter(output_file=out_file, output_size=out_size, fps=fps, audio_file=audio_file,
-                             audio_offset=audio_offset, audio_duration=audio_duration)
-    written = 0
-    with span("render.loop", stats, "render_s"), writer as video:
-        pending, pending_start = None, 0
-        for j, s in enumerate(starts + [None]):
-            # chunk j is queued before chunk j - 1 is fetched; buffers alternate,
-            # and chunk j + 1 is queued only after chunk j - 1 has been written
-            nxt = None if s is None else launch(j, s)
-            if pending is not None:
-                frames = fetch(pending)
-                with span("render.write"):
-                    for f in frames[written - pending_start:]:   # skip the overlap already written
-                        video.write_i420(f) if f.ndim == 2 else video.write(f)
-                        written += 1
-            pending, pending_start = nxt, (s or 0)
-    stats["frames"] = written
+    render_latents_to_video(G.synthesizer, latents, noise, out_file, fps=fps, output_size=out_size,
+                            batch_size=max(1, min(batch_size, T)), audio_file=audio_file,
+                            audio_offset=audio_offset, audio_duration=audio_duration, progress=False,
+                            writer=writer, stats=stats)
+    stats["frames"] = T
     print(f"wrote {out_file}")
     return out_file
 

@@ -37,7 +37,9 @@ StyleGAN3's filtered leaky ReLU (F1) at each layer's 1024 px size and
 channels against the plain op on the card in float32 without TF32, within
 1e-5 of the largest magnitude (float32 sums in another order), or 1e-3 in
 the float16 layers (F1 rounds its float32 result to float16 once); a
-synthesis launches F1 once a filter call.
+synthesis launches F1 once a filter call.  The render loop on the caller's
+stream: the same 8 frames at 64 px twice, the same bytes, and no device
+memory kept per call.
 """
 import pytest
 import torch
@@ -883,3 +885,42 @@ def test_stylegan3_synthesis_launches_f1_once_a_filter_call(cuda_device):
         torch.cuda.synchronize()
         assert flr.calls - before[0] == flr.launches - before[1] == config.num_layers + 1
         assert bool(torch.isfinite(img).all())
+
+
+# ----------------------------------------------------------------- render loop --
+@pytest.mark.cuda
+def test_render_loop_on_the_callers_stream_keeps_no_memory_per_call(cuda_device):
+    """The same 8 frames at 64 px through ``render_latents_to_video`` twice:
+    ``memory_allocated`` after the second call reads what it read after the
+    first (no call adds a cuBLAS workspace for a stream of its own), and both
+    calls write the same frame bytes."""
+    from ssar_tpu_torch.gan import stylegan2 as sg
+    from ssar_tpu_torch.gan.render import render_latents_to_video
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Synthesizer
+
+    cfg = sg.StyleGAN2Config(resolution=64, max_channels=32)
+    syn = StyleGAN2Synthesizer(config=cfg, seed=0, device=cuda_device)
+    lat = torch.randn(8, cfg.n_latent, 512, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+
+    class Sink:
+        def __init__(self):
+            self.frames = []
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def write_i420(self, frame):
+            self.frames.append(frame.tobytes())
+
+    def render():
+        sink = render_latents_to_video(syn, lat, None, batch_size=4, writer=Sink(), progress=False)
+        torch.cuda.synchronize()
+        return sink.frames, torch.cuda.memory_allocated(cuda_device)
+
+    first, after_first = render()
+    second, after_second = render()
+    assert after_second == after_first
+    assert len(first) == 8 and first == second

@@ -109,3 +109,40 @@ def test_render_loop_writes_every_frame(rng):
     assert len(sink.frames) == 11 and sink.frames[0].shape == (24, 16)
     want = rgb_to_i420((syn(lat, noises=[n.permute(0, 2, 3, 1) for n in noise]) + 1) / 2).numpy()
     np.testing.assert_array_equal(np.stack(sink.frames), want)
+
+
+class _RecordingSynthesizer(StyleGAN2Synthesizer):
+    """Keeps each call's latents and noises."""
+
+    calls: list
+
+    def __call__(self, latents, noises=None, **kw):
+        self.calls.append((latents.clone(), [n.clone() for n in noises]))
+        return super().__call__(latents, noises=noises, **kw)
+
+
+@pytest.mark.parametrize("T,bs", [(16, 6), (12, 6), (5, 5), (0, 1)])
+def test_render_loop_pads_the_last_batch_of_a_lazy_noise(rng, T, bs):
+    """Lazy noises ``n(i, b)`` through the loop: T frames written, every
+    window asked for inside [0, T), and each batch's rows past the track
+    (latents and noise) repeat frame T - 1."""
+    cfg = ts.StyleGAN2Config(resolution=16, max_channels=8)
+    syn = _RecordingSynthesizer(config=cfg, seed=0, dtype=torch.float32, device="cpu")
+    syn.calls = []
+    lat = torch.as_tensor(rng.randn(T, cfg.n_latent, 512).astype(np.float32))
+    bases = [torch.as_tensor(rng.randn(T, h, w).astype(np.float32)) for h, w in cfg.noise_shapes()]
+    windows = []
+
+    def lazy(base):
+        def n(i, b):
+            windows.append((i, b))
+            return base[i : i + b]
+        return n
+
+    sink = render_latents_to_video(syn, lat, [lazy(b) for b in bases], batch_size=bs, writer=_Sink(), progress=False)
+    assert len(sink.frames) == T and len(syn.calls) == len(range(0, T, bs))
+    assert all(0 <= i and 1 <= b and i + b <= T for i, b in windows)
+    for i, (got_lat, got_noises) in zip(range(0, T, bs), syn.calls):
+        rows = torch.arange(i, i + bs).clamp(max=T - 1)
+        assert torch.equal(got_lat, lat[rows])
+        assert all(torch.equal(n[..., 0], base[rows]) for n, base in zip(got_noises, bases))

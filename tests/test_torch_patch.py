@@ -344,11 +344,6 @@ def test_load_audio_matches_jax(tmp_path):
     _close(got, want, 0, 1e-5)
 
 
-@pytest.mark.parametrize("T,bs,want", [(16, 6, [0, 6, 10]), (12, 6, [0, 6]), (5, 5, [0]), (0, 0, [])])
-def test_chunk_starts_overlap_at_the_end(T, bs, want):
-    assert t_sample.chunk_starts(T, bs) == want
-
-
 class _Sink:
     def __init__(self):
         self.frames = []
@@ -368,9 +363,9 @@ class _Sink:
 
 def test_generate_on_the_cpu_matches_jax_synthesis(monkeypatch, tmp_path):
     """2 s at 8 fps (16 frames) in batches of 6 at 32 px, float32: 16 frames
-    written, the last chunk overlapping the one before it, the patch JSON
-    beside the output, and each chunk's frames against JAX's synthesis of the
-    same latents and noise windows with the port's weights converted."""
+    written, the last batch padded by repeating its last frame, the patch
+    JSON beside the output, and each batch's frames against JAX's synthesis
+    of the same latents and noise windows with the port's weights converted."""
     from ssar_tpu_torch.gan import wrapper as t_wrap
 
     fps, sr = 8, 8192
@@ -402,8 +397,10 @@ def test_generate_on_the_cpu_matches_jax_synthesis(monkeypatch, tmp_path):
                             js.StyleGAN2Config(resolution=32, max_channels=32), dtype=jnp.float32)
         _close(img, want, 0, 1e-3)
         frames.append(img)
-    # the third chunk starts at frame 10: its first two frames repeat the second chunk's last two
-    _close(calls[2][1][:2], calls[1][1][4:], 0, 0)
+    # the third batch holds frames 12-15: its rows 4 and 5 repeat its row 3, frame 15
+    _close(calls[2][1][4:], calls[2][1][3:4].expand(2, -1, -1), 0, 0)
+    for n in calls[2][2]:
+        _close(n[4:], n[3:4].expand(2, -1, -1, -1), 0, 0)
 
 
 def test_generate_raises_without_cuda(monkeypatch):
