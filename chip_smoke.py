@@ -49,6 +49,12 @@ Phases (any failure exits non-zero and prints no result line):
      (the input read and the output written once at 3.35 TB/s; the
      separable polyphase multiply-adds at 67 TFLOP/s); then one StyleGAN3-T
      synthesis of 16 frames at 1024 px, 15 launches exactly, timed;
+  3g. kernel check: StyleGAN2's styled-conv epilogue (E1) at each of the 17
+     styled convs of config-f at 1024 px, batch 64, bfloat16, against the
+     plain passes on the card in float32 on the same values, two calls
+     bit-identical, one launch a call; its time (CUDA events) beside the
+     plain passes' (bfloat16) and its bound (input, noise and output once at
+     3.35 TB/s); one synthesizer call at 1024 px, 17 launches exactly;
   3c. kernel check: the sliding median's backward (B1 bwd) against its plain
      version (torch.equal) at the HPSS and long-form chunk shapes on both
      axes, the optimize path's (2n, n) k = 7 and (n, n) k = 9, batched and
@@ -589,6 +595,8 @@ def main():
     noise_row, noise_err = check_noise_tree(dev)
     # --------------------------------------------------------------- 3f --
     flr_row, flr_err = check_filtered_lrelu(dev)
+    # --------------------------------------------------------------- 3g --
+    e1_row, e1_err = check_styled_epilogue(dev)
 
     # ---------------------------------------------------------------- 4 --
     sr_in = 44100
@@ -817,6 +825,14 @@ def main():
         "replaces": None, "launches": flr_row.pop("launches"), "max_abs_err": flr_err,
         # the 15 layers of a 16-frame StyleGAN3-T batch at 1024 px
         **flr_row, "library_ms": None,
+    }, {
+        "name": "styled_epilogue", "route": "cuda", "source": "ssar_tpu_torch/csrc/styled_epilogue.cu",
+        # no TPU kernel: the JAX package leaves the styled conv's epilogue to XLA (ssar_tpu/gan/stylegan2.py)
+        "replaces": None, "launches": e1_row.pop("launches"), "max_abs_err": e1_err,
+        # the 17 styled convs of a 64-frame StyleGAN2 batch at 1024 px; launches on the long-form render (4320
+        # frames, batch 64) and the random patch's 1024 px render (480 frames, batch 16)
+        **e1_row, "library_ms": None, "launches_longform": long_counts["styled_epilogue"],
+        "launches_patch": patch_counts["styled_epilogue"],
     }]
     log(f"[total] chip_smoke.py took {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -829,10 +845,11 @@ def longform_path(dev, synthesizer, config, palette) -> dict:
     """Phase 4b: the long-form bench's configuration end to end on the card,
     after a warm-up at the same chunk shapes and batch (cuFFT plans, host
     filter-bank caches, cuDNN heuristics); returns the sliding-median launch
-    counts of the timed run's feature call."""
+    counts of the timed run's feature call and the E1 launches of its render
+    (17 a batch of 64, exact)."""
     from ssar_tpu_torch.generate.audio2video import react, render_reaction
     from ssar_tpu_torch.models.reactor import LatentNoiseReactor
-    from ssar_tpu_torch.ops import median_cuda
+    from ssar_tpu_torch.ops import median_cuda, styled_epilogue
     from ssar_tpu_torch.parallel.features_sp import _chunk_plan, audio2features_long
 
     sr = 1024 * FPS
@@ -863,9 +880,15 @@ def longform_path(dev, synthesizer, config, palette) -> dict:
         torch.cuda.synchronize()
         t_c = time.perf_counter()
         sink = FrameSink((1536, 1024))
+        styled_epilogue.reset_counters()
         render_reaction(latents[:n_frames], [n[:n_frames] for n in noise], output_size=(1024, 1024),
                         batch_size=LONG_BATCH, gan_config=config, synthesizer=synthesizer, writer=sink)
         torch.cuda.synchronize()
+        want_e1 = 17 * math.ceil(n_frames / LONG_BATCH)
+        if (styled_epilogue.calls, styled_epilogue.launches) != (want_e1, want_e1):
+            fail(f"the long-form render of {n_frames} frames: {styled_epilogue.calls} styled-conv epilogues and "
+                 f"{styled_epilogue.launches} E1 launches, expected {want_e1} and {want_e1}")
+        counts["styled_epilogue"] = styled_epilogue.launches
         return feats, latents, sink, counts, (t_a, t_b, t_c, time.perf_counter())
 
     run(synthetic_track(sr, LONG_WARM_SECONDS), LONG_BATCH)
@@ -880,8 +903,10 @@ def longform_path(dev, synthesizer, config, palette) -> dict:
         fail(f"long-form latents {tuple(latents.shape)}")
     if len(sink.crcs) != T or len(set(sink.crcs)) < T // 2 or not (16 <= sink.y_range[0] <= sink.y_range[1] <= 235):
         fail(f"long-form frames: {len(sink.crcs)} written, {len(set(sink.crcs))} distinct, luma {sink.y_range}")
+    e1 = counts.pop("styled_epilogue")
     if counts != {"sliding_median": want_b1, "sliding_median_generic": 0, "sliding_median_generic_bwd": 0}:
         fail(f"long-form features launched the median kernels {counts}, expected {want_b1} and no generic one")
+    counts["styled_epilogue"] = e1
     total = t_d - t_a
     log(f"[longform] {LONG_SECONDS} s @ {sr} Hz -> audio2features_long {tuple(feats.shape)} in {n_chunks} chunks -> "
         f"latents {tuple(latents.shape)} -> {len(sink.crcs)} I420 frames 1024x1024, batch {LONG_BATCH}, bf16 "
@@ -889,7 +914,7 @@ def longform_path(dev, synthesizer, config, palette) -> dict:
     log(f"[longform] features_s {t_b - t_a:.3f}, reactor_s {t_c - t_b:.3f}, render_s {t_d - t_c:.3f}; end-to-end "
         f"{total:.3f} s = {T / total:.2f} fps = {LONG_SECONDS / total:.2f}x realtime; render {T / (t_d - t_c):.2f} fps; "
         f"peak memory {peak_gb:.2f} GiB; sliding_median launches {counts['sliding_median']} (expected {want_b1}); "
-        f"frame crc[0] {sink.crcs[0]:08x}")
+        f"styled_epilogue launches {e1} (17 a batch of {LONG_BATCH}); frame crc[0] {sink.crcs[0]:08x}")
     return counts
 
 
@@ -1564,6 +1589,126 @@ def check_filtered_lrelu(dev) -> tuple[dict, float]:
             "synthesis_ms": synthesis_ms, "launches": launches, "layers": rows}, max_err
 
 
+SG2_BATCH = LONG_BATCH   # the long-form cell's render batch
+# the reactor's noise maps at the long-form cell: a track's (1, H, W, T) frames last, read a batch of frames at a
+# time as a (B, 1, H, W) view with a column stride of T; the reactor's four levels feed the 7 layers of <= 32 px
+LONG_FRAMES, LONG_NOISE_SIDE = LONG_SECONDS * FPS, 32
+
+
+def check_styled_epilogue(dev) -> tuple[dict, float]:
+    """Phase 3g: E1 (``csrc/styled_epilogue.cu``) at each of the 17 styled
+    convs of StyleGAN2 config-f at 1024 px, batch 64 in bfloat16 (the
+    long-form cell's): y 3 N(0, 1) (the raw conv output, (2H + 1)^2 for an
+    up-conv), demod in [0.5, 1.5), bias N(0, 1), and three noises: N(0, 1)
+    as the synthesis's (B, 1, H, W) view of NHWC ("nhwc"), as the reactor's
+    frames-last view, a column stride of LONG_FRAMES and a batch stride of 1
+    ("frames_last"), and none.  Each within 1e-2 of the largest magnitude of
+    the plain version in float32 without TF32 on the same values, on all 64
+    samples (in chunks of 8; E1 rounds its float32 result to bfloat16 once);
+    two calls bit-identical, one launch a call.  Its time (CUDA events around
+    a call, the median) for each noise, beside the plain version's in
+    bfloat16 (the passes the synthesis ran before E1), and the bound: the
+    call's ``least_bytes`` (input, noise and output once) at 3.35 TB/s.  The
+    long-form cell's layout is the frames-last noise at the 7 layers of <= 32
+    px and none above.  Then one synthesizer call of 8 frames at 1024 px: 17
+    calls, 17 launches."""
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Synthesizer
+    from ssar_tpu_torch.ops import styled_epilogue as se
+    from ssar_tpu_torch.utils.device import full_precision
+
+    t0 = time.perf_counter()
+    config = StyleGAN2Config()
+    chans = config.channels()
+    layers = [(4, chans[4], False)] + [(2 ** i, chans[2 ** i], up) for i in range(3, config.log_size + 1)
+                                       for up in (True, False)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows, max_err = [], 0.0
+
+    def noises(res):
+        """The layer's noise in each layout."""
+        nhwc = torch.randn((SG2_BATCH, res, res, 1), generator=g, device=dev).to(torch.bfloat16).permute(0, 3, 1, 2)
+        track = torch.randn((1, res, res, LONG_FRAMES), generator=g, device=dev, dtype=torch.bfloat16)
+        return {"nhwc": nhwc, "frames_last": track.permute(3, 0, 1, 2)[SG2_BATCH:2 * SG2_BATCH], "none": None}
+
+    def gap(got, y, demod, noise, nw, bias, up):
+        """E1's largest error over the plain float32 version's largest magnitude, all samples."""
+        err = top = 0.0
+        with full_precision():
+            for s in range(0, SG2_BATCH, 8):
+                part = slice(s, s + 8)
+                want = se.plain(y[part].float(), demod[part], None if noise is None else noise[part].float(), nw,
+                                bias, up=up)
+                err = max(err, float((got[part].float() - want).abs().max()))
+                top = max(top, float(want.abs().max()))
+        return err / top
+
+    with torch.no_grad():
+        for index, (res, c, up) in enumerate(layers):
+            n = res + 1 if up else res
+            y = (3 * torch.randn((SG2_BATCH, c, n, n), generator=g, device=dev)).to(torch.bfloat16)
+            demod = torch.rand((SG2_BATCH, c), generator=g, device=dev) + 0.5
+            bias = torch.randn((c,), generator=g, device=dev)
+            nw = torch.tensor(0.7, device=dev)
+            row = {"layer": index, "shape": list(y.shape), "up": up}
+            for layout, noise in noises(res).items():
+                args = (y, demod, noise, nw, bias)
+                before = (se.calls, se.launches, se.least_bytes)
+                got, again = se.styled_epilogue(*args, up=up), se.styled_epilogue(*args, up=up)
+                moved = (se.least_bytes - before[2]) // 2
+                if (se.calls - before[0], se.launches - before[1]) != (2, 2) or not torch.equal(got, again):
+                    fail(f"styled_epilogue layer {index}, {layout} noise: {se.launches - before[1]} launches and "
+                         f"{se.calls - before[0]} calls for two, expected 2 and 2; two calls equal: "
+                         f"{torch.equal(got, again)}")
+                err = gap(got, *args, up)
+                if not err <= 1e-2:
+                    fail(f"styled_epilogue layer {index}, {layout} noise: {err:.3g} of the plain version's largest "
+                         f"magnitude")
+                max_err = max(max_err, err)
+                key = "" if layout == "nhwc" else f"_{layout}"
+                row.update({"out": list(got.shape), f"err{key}": err, f"least_bytes{key}": moved,
+                            f"ms{key}": cuda_ms(lambda: se.styled_epilogue(*args, up=up), runs=10),
+                            f"bytes_bound_ms{key}": moved / HBM_BYTES_PER_S * 1e3})
+                if layout == "nhwc":
+                    row["plain_ms"] = cuda_ms(lambda: se.plain(*args, up=up), runs=5)
+                del got, again, args, noise
+            long_key = "_frames_last" if res <= LONG_NOISE_SIDE else "_none"
+            row["ms_longform"], row["bytes_bound_ms_longform"] = row[f"ms{long_key}"], row[f"bytes_bound_ms{long_key}"]
+            rows.append(row)
+            log(f"[kernel] styled_epilogue layer {index} {tuple(y.shape)} -> {tuple(row['out'])}: device, noise "
+                f"nhwc / frames-last / none {row['ms']:.4f} / {row['ms_frames_last']:.4f} / {row['ms_none']:.4f} ms "
+                f"(plain {row['plain_ms']:.4f}); bound {row['bytes_bound_ms']:.4f} / {row['bytes_bound_ms_none']:.4f} "
+                f"ms ({row['bytes_bound_ms'] / row['ms']:.1%} / {row['bytes_bound_ms'] / row['ms_frames_last']:.1%} / "
+                f"{row['bytes_bound_ms_none'] / row['ms_none']:.1%}); error {row['err']:.3g} / "
+                f"{row['err_frames_last']:.3g} / {row['err_none']:.3g}")
+            del y
+        synthesizer = StyleGAN2Synthesizer(config=config, seed=SEED, dtype=torch.bfloat16, device=dev)
+        ws = torch.randn((8, config.n_latent, config.style_dim), generator=g, device=dev)
+        synthesizer(ws)
+        torch.cuda.synchronize()
+        before = (se.calls, se.launches)
+        img = synthesizer(ws)
+        torch.cuda.synchronize()
+        launches = se.launches - before[1]
+        if (se.calls - before[0], launches) != (17, 17) or not bool(torch.isfinite(img).all()):
+            fail(f"StyleGAN2 synthesis: {se.calls - before[0]} epilogue calls, {launches} E1 launches, expected 17 "
+                 f"and 17 (finite: {bool(torch.isfinite(img).all())})")
+        del synthesizer, img
+    total = {k: sum(r[k] for r in rows) for k in rows[0] if "ms" in k}
+    log(f"[kernel] styled_epilogue: 17 layers of a {SG2_BATCH}-frame batch at 1024 px: device, noise nhwc "
+        f"{total['ms']:.3f} ms, frames-last {total['ms_frames_last']:.3f}, none {total['ms_none']:.3f}, the "
+        f"long-form cell's layout {total['ms_longform']:.3f} (plain {total['plain_ms']:.3f}); bound "
+        f"{total['bytes_bound_ms']:.3f} ms ({total['bytes_bound_ms'] / total['ms']:.1%}), frames-last "
+        f"{total['bytes_bound_ms'] / total['ms_frames_last']:.1%}, long-form layout "
+        f"{total['bytes_bound_ms_longform']:.3f} ms ({total['bytes_bound_ms_longform'] / total['ms_longform']:.1%}); "
+        f"largest error {max_err:.3g}; counters calls {se.calls}, launches {se.launches}, least_bytes "
+        f"{se.least_bytes}; one synthesis of 8 frames {launches} launches; phase 3g took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ms": total["ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bytes_bound_ms"],
+            "bound_by": "bytes", "ms_frames_last": total["ms_frames_last"], "ms_longform": total["ms_longform"],
+            "bound_ms_longform": total["bytes_bound_ms_longform"], "launches": launches, "layers": rows}, max_err
+
+
 def vandermonde_f64(args, L: int, g: torch.Tensor):
     """K and its four gradients (da, db, dcre, dcim) for the cotangent g in
     float64, from the same fp32-rounded products fl(a l) and fl(b l) that the
@@ -2125,8 +2270,9 @@ def reference_optimize(dev):
 def patch_path(dev) -> dict:
     """Phase 11: the random-patch CLI's ``generate`` at its defaults on a
     60 s track read from a wav, after an untimed warm-up; then at 1024 px on
-    its first 20 s.  Returns the sliding-median launch count of the timed
-    60 s call."""
+    its first 20 s.  Returns the sliding-median and noise-tree launch counts
+    of the timed 60 s call, and the E1 launches of the 1024 px one (17 a
+    batch of 16, exact)."""
     from scipy.io import wavfile
 
     from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
@@ -2134,7 +2280,7 @@ def patch_path(dev) -> dict:
     from ssar_tpu_torch.generate import keys, sample
     from ssar_tpu_torch.generate.mir import retrieve_music_information
     from ssar_tpu_torch.generate.patch import Patch
-    from ssar_tpu_torch.ops import median_cuda, noise_tree_cuda
+    from ssar_tpu_torch.ops import median_cuda, noise_tree_cuda, styled_epilogue
 
     out_dir = ROOT / "build" / "chip_smoke_runs" / "patch"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -2182,6 +2328,7 @@ def patch_path(dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         median_cuda.launches = 0
+        styled_epilogue.reset_counters()
         trees_before = (noise_tree_cuda.launches, noise_tree_cuda.trees, noise_tree_cuda.opaque_leaves)
         stats, sink = {}, FrameSink(shape)
         t0 = time.perf_counter()
@@ -2202,6 +2349,11 @@ def patch_path(dev) -> dict:
                  f"expected {(2 * want_trees, want_trees, 0)}")
         if b1 != PATCH_B1:
             fail(f"random-patch path at {side} px launched the sliding median {b1} times, expected {PATCH_B1}")
+        # a styled conv a layer a batch: 2 log2(side) - 3 layers
+        e1, want_e1 = styled_epilogue.launches, len(range(0, n_frames, batch)) * (2 * int(np.log2(side)) - 3)
+        if (styled_epilogue.calls, e1) != (want_e1, want_e1):
+            fail(f"random-patch path at {side} px: {styled_epilogue.calls} styled-conv epilogues and {e1} E1 "
+                 f"launches, expected {want_e1} and {want_e1}")
         if len(sink.crcs) != n_frames or stats["frames"] != n_frames:
             fail(f"random-patch path at {side} px: {len(sink.crcs)} frames written, expected {n_frames}")
         if len(set(sink.crcs)) < n_frames // 2 or not (16 <= sink.y_range[0] <= sink.y_range[1] <= 235):
@@ -2216,10 +2368,13 @@ def patch_path(dev) -> dict:
             + f"; end to end {total:.3f} s = {n_frames / total:.2f} fps = {seconds / total:.2f}x realtime; render "
             f"{n_frames / stats['render_s']:.2f} fps; noise banks {stats['bank_bytes'] / 1e6:.1f} MB; peak memory "
             f"{peak:.2f} GiB; sliding_median launches {b1} (expected {PATCH_B1}); noise_tree launches {n1}, trees {n_trees}, opaque leaves {n_opaque}; "
+            f"styled_epilogue launches {e1}; "
             f"{json_file.name}; "
             f"frame crc[0] {sink.crcs[0]:08x}")
         if downscale == 4:
             counts = {"sliding_median": b1, "noise_tree": n1}
+        else:   # the patch cell's size
+            counts["styled_epilogue"] = e1
             log(f"[patch] noise trees alone (warm-up) are {trees_s / stats['render_s']:.3f} of this render")
     return counts
 
@@ -3009,37 +3164,43 @@ def reference_families(dev):
 
 
 # ------------------------------------------------------------------ 19-21 --
-# the kernels' launch counters, read around each path of phases 19 and 20
+# the kernels' launch counters, read around each path of phases 19 and 20; _expect holds those in COUNTED exactly
+# on every path, and E1 (styled_epilogue, a launch a StyleGAN2 styled conv) where the path names its count
 COUNTED = ("sliding_median", "sliding_median_bwd", "absdiff", "s4d_vandermonde", "s4d_vandermonde_bwd")
 
 
 def _zero_counts():
-    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda, vandermonde_cuda
+    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda, styled_epilogue, vandermonde_cuda
 
     median_cuda.launches = median_cuda.bwd_launches = median_cuda.generic_launches = 0
     median_cuda.generic_bwd_launches = absdiff_cuda.launches = 0
     vandermonde_cuda.launches = vandermonde_cuda.bwd_launches = 0
+    styled_epilogue.reset_counters()
 
 
 def _counts(sliding_median_generic: int = 0, sliding_median_generic_bwd: int = 0) -> dict:
-    """The launch counts of the kernels in COUNTED since ``_zero_counts``;
-    fails unless the generic (k > 31) median kernels were launched exactly as
-    often as the path expects (0 on every path but phase 3d's)."""
-    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda, vandermonde_cuda
+    """The launch counts of the kernels in COUNTED and of E1 since
+    ``_zero_counts``; fails unless the generic (k > 31) median kernels were
+    launched exactly as often as the path expects (0 on every path but phase
+    3d's), or E1 other than once a call."""
+    from ssar_tpu_torch.ops import absdiff_cuda, median_cuda, styled_epilogue, vandermonde_cuda
 
     got = (median_cuda.generic_launches, median_cuda.generic_bwd_launches)
     if got != (sliding_median_generic, sliding_median_generic_bwd):
         fail(f"the generic (k > 31) median kernels: {got} forward / backward launches, expected "
              f"{(sliding_median_generic, sliding_median_generic_bwd)}")
+    if styled_epilogue.launches != styled_epilogue.calls:
+        fail(f"styled_epilogue: {styled_epilogue.launches} E1 launches for {styled_epilogue.calls} calls")
     return {"sliding_median": median_cuda.launches, "sliding_median_bwd": median_cuda.bwd_launches,
             "absdiff": absdiff_cuda.launches, "s4d_vandermonde": vandermonde_cuda.launches,
-            "s4d_vandermonde_bwd": vandermonde_cuda.bwd_launches}
+            "s4d_vandermonde_bwd": vandermonde_cuda.bwd_launches, "styled_epilogue": styled_epilogue.launches}
 
 
 def _expect(what: str, got: dict, **want):
-    """Fail unless the launch counts are exactly `want` (every other kernel 0)."""
-    want = {k: want.get(k, 0) for k in COUNTED}
-    if got != want:
+    """Fail unless the launch counts are exactly `want`: every other kernel of
+    COUNTED 0, E1 checked where `want` names it."""
+    want = {k: want.get(k, 0) for k in COUNTED} | want
+    if {k: got[k] for k in want} != want:
         fail(f"{what}: kernel launches {got}, expected {want}")
 
 

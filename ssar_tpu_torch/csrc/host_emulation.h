@@ -52,6 +52,7 @@ inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); retu
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 
 // Loads through the read-only and the L2-only paths are plain loads here.
+struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 template <typename T> inline T __ldg(const T* p) { return *p; }
 template <typename T> inline T __ldcg(const T* p) { return *p; }
@@ -104,6 +105,12 @@ inline __half __float2half_rn(float f) {
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  return static_cast<unsigned>(((static_cast<unsigned long long>(hi) << 32) | lo) >> (shift & 31));
+}
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return static_cast<unsigned>((static_cast<unsigned long long>(a) * b) >> 32);
+}
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __expf(float x) { return std::exp(x); }
 inline void __sincosf(float x, float* s, float* c) { *s = std::sin(x); *c = std::cos(x); }

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.upfirdn import fused_leaky_relu, make_blur_kernel, upfirdn2d, upsample2x
+from ..ops.styled_epilogue import styled_epilogue
+from ..ops.upfirdn import fused_leaky_relu, upsample2x
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,40 +213,36 @@ def prepare_synthesis(params: dict, config: StyleGAN2Config, dtype=torch.float32
 
 
 def _modulated_conv(p: dict, prep: dict, x: torch.Tensor, w: torch.Tensor, *, up: bool = False,
-                    demodulate: bool = True, blur_kernel=(1, 3, 3, 1), dtype=torch.float32) -> torch.Tensor:
-    """x (B, Cin, H, W), w (B, style_dim) -> (B, Cout, H', W')."""
+                    demodulate: bool = True, dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """x (B, Cin, H, W), w (B, style_dim) -> the raw convolution (B, Cout, H', W')
+    (for ``up`` the stride-2 transposed conv's (2H + 1)-wide output, before
+    its blur) and the float32 demodulation (B, Cout), or None."""
     style = equal_linear(p["mod"], w)  # (B, cin) f32
     # the style is cast down to the compute dtype before the multiply, so a
     # bf16 activation is not promoted to f32
     xs = x.to(dtype) * style.to(dtype)[:, :, None, None]
     kernel = prep["kernel"]
     if up:
-        # transposed conv, stride 2 (torch semantics), then the blur
-        out = F.conv_transpose2d(xs, kernel, stride=2)
-        kh = kernel.shape[-1]
-        k = torch.as_tensor(make_blur_kernel(blur_kernel) * 4.0)
-        p_ = (len(blur_kernel) - 2) - (kh - 1)
-        out = upfirdn2d(out, k, pad=((p_ + 1) // 2 + 1, p_ // 2 + 1))
+        out = F.conv_transpose2d(xs, kernel, stride=2)   # torch semantics; the blur follows in the epilogue
     else:
         out = F.conv2d(xs, kernel, padding=kernel.shape[-1] // 2)
-    if demodulate:
-        demod = torch.rsqrt(style.float() ** 2 @ prep["w2"].T + 1e-8)  # (B, cout)
-        out = out * demod.to(out.dtype)[:, :, None, None]
-    return out
+    demod = torch.rsqrt(style.float() ** 2 @ prep["w2"].T + 1e-8) if demodulate else None  # (B, cout)
+    return out, demod
 
 
 def styled_conv(p: dict, prep: dict, x: torch.Tensor, w: torch.Tensor, noise: torch.Tensor | None, *,
                 up: bool = False, blur_kernel=(1, 3, 3, 1), dtype=torch.float32) -> torch.Tensor:
-    """noise: (B, 1, H, W) or None."""
-    out = _modulated_conv(p, prep, x, w, up=up, blur_kernel=blur_kernel, dtype=dtype)
-    if noise is not None:
-        out = out + p["noise_weight"].to(out.dtype) * noise.to(out.dtype)
-    return fused_leaky_relu(out, p["bias"].to(out.dtype))
+    """noise: (B, 1, H, W) or None.  The convolution, then its epilogue (the
+    up-conv's blur, demodulation, noise, bias, leaky ReLU and gain) in one
+    ``styled_epilogue`` call: kernel E1 on a card."""
+    out, demod = _modulated_conv(p, prep, x, w, up=up, dtype=dtype)
+    return styled_epilogue(out, demod, noise, p.get("noise_weight"), p["bias"], up=up, blur_kernel=blur_kernel,
+                           kernel_size=prep["kernel"].shape[-1])
 
 
 def to_rgb(p: dict, prep: dict, x: torch.Tensor, w: torch.Tensor, skip: torch.Tensor | None = None,
            dtype=torch.float32) -> torch.Tensor:
-    out = _modulated_conv(p, prep, x, w, demodulate=False, dtype=dtype) + p["bias"].to(dtype)[:, None, None]
+    out = _modulated_conv(p, prep, x, w, demodulate=False, dtype=dtype)[0] + p["bias"].to(dtype)[:, None, None]
     if skip is not None:
         out = out + upsample2x(skip)
     return out

@@ -40,7 +40,7 @@ def test_card_sources(csrc):
 def test_host_emulation_header_changes_no_library(csrc):
     before = _paths(csrc)
     assert set(before) == {"absdiff", "filtered_lrelu", "noise_tree", "s4d_vandermonde", "sliding_median",
-                           "sliding_median_bwd"}
+                           "sliding_median_bwd", "styled_epilogue"}
     _append(csrc / "host_emulation.h")
     assert _paths(csrc) == before
 

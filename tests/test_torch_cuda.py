@@ -37,9 +37,14 @@ StyleGAN3's filtered leaky ReLU (F1) at each layer's 1024 px size and
 channels against the plain op on the card in float32 without TF32, within
 1e-5 of the largest magnitude (float32 sums in another order), or 1e-3 in
 the float16 layers (F1 rounds its float32 result to float16 once); a
-synthesis launches F1 once a filter call.  The render loop on the caller's
-stream: the same 8 frames at 64 px twice, the same bytes, and no device
-memory kept per call.
+synthesis launches F1 once a filter call.  StyleGAN2's styled-conv
+epilogue (E1) at each of config-f's 17 layers against the plain passes in
+float32 without TF32: within 1e-2 of the largest magnitude in bfloat16 (E1
+rounds once) and 1e-5 in float32; a 1024 px synthesis launches E1 once a
+styled conv; a 64 px synthesis's gradients through E1 equal the plain
+passes' within 1e-5; an up-conv's styled conv makes no synchronising call.
+The render loop on the caller's stream: the same 8 frames at 64 px twice,
+the same bytes, and no device memory kept per call.
 """
 import pytest
 import torch
@@ -885,6 +890,147 @@ def test_stylegan3_synthesis_launches_f1_once_a_filter_call(cuda_device):
         torch.cuda.synchronize()
         assert flr.calls - before[0] == flr.launches - before[1] == config.num_layers + 1
         assert bool(torch.isfinite(img).all())
+
+
+# ------------------------------------------------------------- styled epilogue --
+def _sg2_layers():
+    """(output side, channels, up) of StyleGAN2 config-f's 17 styled convs at 1024 px."""
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+
+    config = StyleGAN2Config()
+    chans = config.channels()
+    return [(4, chans[4], False)] + [(2 ** i, chans[2 ** i], up) for i in range(3, config.log_size + 1)
+                                     for up in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(17))
+def test_styled_epilogue_kernel_matches_the_plain_version_at_1024(cuda_device, index):
+    """E1 at the layer's config-f size and channels, batch 2, in bfloat16 and
+    in float32, against the plain passes in float32 (TF32 off) on the same
+    values: within 1e-2 (bfloat16: E1 rounds once) and 1e-5 (float32) of the
+    largest magnitude; two calls equal, one launch a call."""
+    from ssar_tpu_torch.ops import styled_epilogue as se
+    from ssar_tpu_torch.utils.device import full_precision
+
+    res, c, up = _sg2_layers()[index]
+    g = torch.Generator(device=cuda_device).manual_seed(index)
+    n = res + 1 if up else res
+    y = 3 * torch.randn((2, c, n, n), generator=g, device=cuda_device)
+    demod = torch.rand((2, c), generator=g, device=cuda_device) + 0.5
+    bias = torch.randn((c,), generator=g, device=cuda_device)
+    noise = torch.randn((2, res, res, 1), generator=g, device=cuda_device).permute(0, 3, 1, 2)
+    nw = torch.tensor(0.7, device=cuda_device)
+    with torch.no_grad(), full_precision():
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            yd, nd = y.to(dtype), noise.to(dtype)
+            want = se.plain(yd.float(), demod, nd.float(), nw, bias, up=up)
+            before = (se.calls, se.launches)
+            got, again = se.styled_epilogue(yd, demod, nd, nw, bias, up=up), \
+                se.styled_epilogue(yd, demod, nd, nw, bias, up=up)
+            assert (se.calls - before[0], se.launches - before[1]) == (2, 2)
+            assert got.dtype == dtype and got.shape == want.shape and torch.equal(got, again)
+            assert float((got.float() - want).abs().max()) <= tol * float(want.abs().max()), dtype
+
+
+@pytest.mark.cuda
+def test_stylegan2_synthesis_launches_e1_once_a_styled_conv(cuda_device):
+    """A 1024 px synthesizer call: 17 styled convs, 17 E1 launches."""
+    from ssar_tpu_torch.gan.stylegan2 import StyleGAN2Config
+    from ssar_tpu_torch.gan.wrapper import StyleGAN2Synthesizer
+    from ssar_tpu_torch.ops import styled_epilogue as se
+
+    config = StyleGAN2Config()
+    syn = StyleGAN2Synthesizer(config=config, seed=0, device=cuda_device)
+    ws = torch.randn((1, config.n_latent, config.style_dim), device=cuda_device)
+    noises = [torch.randn((1, h, w, 1), device=cuda_device) for h, w in config.noise_shapes()]
+    before = (se.calls, se.launches)
+    img = syn(ws, noises=noises)
+    torch.cuda.synchronize()
+    assert (se.calls - before[0], se.launches - before[1]) == (17, 17)
+    assert bool(torch.isfinite(img).all())
+
+
+@pytest.mark.cuda
+def test_stylegan2_gradients_through_e1_equal_the_plain_paths(cuda_device, monkeypatch):
+    """A 64 px float32 synthesis differentiated through E1 (forward E1, the
+    plain passes' VJP backward) and through the plain passes alone: the
+    gradients of the latents, the noises and every styled conv's parameters
+    within 1e-5 of their largest magnitude (TF32 off, cuDNN deterministic:
+    its atomic weight gradients differ from run to run by more than E1's
+    rounding moves them, ~1e-5 of a noise weight's gradient, a sum that
+    cancels).  The leaky ReLU is the network's only nonlinearity, so where
+    the two forwards agree on its signs every activation's gradient is the
+    same; the weights' differ by E1's rounding of the activations."""
+    from ssar_tpu_torch.gan import stylegan2 as sg
+    from ssar_tpu_torch.ops import styled_epilogue as se
+    from ssar_tpu_torch.utils.device import full_precision
+
+    config = sg.StyleGAN2Config(resolution=64, max_channels=32)
+    gen = torch.Generator().manual_seed(0)
+    params = sg.init_generator(config, gen)
+    for p in [params["conv1"], *params["convs"]]:
+        p["noise_weight"] = torch.tensor(0.3)
+        p["bias"] = 0.1 * torch.randn(p["bias"].shape, generator=gen)
+    ws = torch.randn((2, config.n_latent, config.style_dim), generator=gen)
+    noises = [torch.randn((2, h, w, 1), generator=gen) for h, w in config.noise_shapes()]
+    weights = torch.randn((2, 64, 64, 3), generator=gen).to(cuda_device)
+
+    def to_card(tree):
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_card(v) for v in tree]
+        return tree.to(cuda_device)
+
+    def grads():
+        card = to_card(params)
+        convs = [card["conv1"], *card["convs"]]
+        leaves = [p[k].requires_grad_() for p in convs for k in ("weight", "bias", "noise_weight")]
+        lat = ws.to(cuda_device).requires_grad_()
+        ns = [n.to(cuda_device).requires_grad_() for n in noises]
+        before = se.launches
+        with full_precision():
+            img = sg.synthesis(card, lat, ns, config)
+            (img * weights).sum().backward()
+        return se.launches - before, [lat.grad, *[n.grad for n in ns], *[t.grad for t in leaves]]
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    launched, e1 = grads()
+    assert launched == config.num_layers
+    monkeypatch.setattr(sg, "styled_epilogue", se.plain)
+    launched, plain = grads()
+    assert launched == 0
+    for got, want in zip(e1, plain):
+        assert got is not None and float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_an_up_styled_conv_never_synchronises(cuda_device):
+    """After a warm-up call (the library's build and load), an up-conv's
+    styled conv runs under ``set_sync_debug_mode("error")``: the blur's taps
+    are launch parameters, so no call copies from the host."""
+    from ssar_tpu_torch.gan import stylegan2 as sg
+
+    config = sg.StyleGAN2Config(resolution=64, max_channels=32)
+    params = sg.init_generator(config, torch.Generator().manual_seed(0), device=cuda_device)
+    prep = sg.prepare_synthesis(params, config, torch.bfloat16)
+    x = torch.randn((2, 32, 8, 8), device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((2, config.style_dim), device=cuda_device)
+    noise = torch.randn((2, 1, 16, 16), device=cuda_device).to(torch.bfloat16)
+
+    def call():
+        return sg.styled_conv(params["convs"][2], prep["convs"][2], x, w, noise, up=True, dtype=torch.bfloat16)
+
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (2, 32, 16, 16)
 
 
 # ----------------------------------------------------------------- render loop --

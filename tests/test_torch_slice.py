@@ -146,7 +146,7 @@ def test_port_imports_nothing_of_jax():
             "ssar_tpu_torch/experiments.py", "ssar_tpu_torch/scripts/make_record_dataset.py",
             "ssar_tpu_torch/scripts/train_calibration_g.py", "ssar_tpu_torch/scripts/ood_absolute.py",
             "ssar_tpu_torch/scripts/run_study.py", "ssar_tpu_torch/gan/stylegan3.py",
-            "ssar_tpu_torch/ops/filtered_lrelu.py"} <= names
+            "ssar_tpu_torch/ops/filtered_lrelu.py", "ssar_tpu_torch/ops/styled_epilogue.py"} <= names
     # every example of the JAX package has its port, and the check reads it
     ported = examples.PATCHES + examples.SCRIPTS
     assert sorted(p.stem for p in (ROOT / "examples").glob("*.py")) == sorted(ported)
